@@ -6,18 +6,25 @@ Phases, one printed line or more each; any failure raises and the exit code
 is non-zero:
 
   1. setup      card name and power limit (the nvidia-smi line, printed as
-                it comes), kernel build time;
+                it comes), kernel build time, what ptxas reported for the
+                kernel's variants (registers, spills);
   2. kernel     the CUDA distance-field kernel against its plain PyTorch
                 version on the card, at the main path's three shapes
-                (loc64 batch, Ricker, 800x600 fingerprint), float32 and float64;
+                (loc64 batch, Ricker, 800x600 fingerprint), float32 and
+                float64, and whether the two are bit for bit identical;
   3. loc64      the headline: batched loc/CMT W2 misfit + gradient w.r.t.
                 the source location, 64 stations x 3 components, float32 on
-                the card, through the kernel (launch count checked), against
-                the same problem in float64 on the CPU;
-  4. ricker     the Ricker objective in float64 on the card against the
-                golden reference values in tests_golden_ref.json;
-  5. timing     medians of 20 calls after warm-up: loc64 value+grad in
-                float32 and float64, and the kernel against the plain version.
+                the card, through exactly one kernel launch, against the same
+                problem in float64 on the CPU;
+  4. ricker     the Ricker objective in float64 on the card, through exactly
+                one kernel launch, against the golden reference values in
+                tests_golden_ref.json;
+  5. timing     loc64 value+grad in float32 and float64 (host clock, median
+                of 20 calls); per shape and dtype the kernel's device time
+                (CUDA events around runs of back-to-back launches, see
+                device_ms), its bound from the shapes (kernel_bound), its
+                share of the bound, the plain version's time, and the
+                kernel variant's ptxas line.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -27,6 +34,7 @@ printing any result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -46,6 +54,21 @@ VALUE_RTOL_F32 = 1e-4            # loc64 f32 on the card vs f64 on the CPU
 GRAD_TOL_F32 = 1e-3              # ... in units of max |g|
 RICKER_W2_TOL = 1e-8             # the JAX package's golden bars
 RICKER_GRAD_TOL = 5e-7
+BACK_TO_BACK = 50                # kernel launches per timed run
+SAMPLES = 5                      # timed runs; their median is reported
+PLAIN_BACK_TO_BACK = 5           # plain-version calls per timed run (~100s of launches each)
+# The bound counts the operations these inputs need, against the H100 SXM's
+# peaks outside the tensor cores at a 700 W limit, and each input read once and
+# each output written once against HBM3. bx = px - x0x and bx*cx depend only on
+# the grid column and the segment, by = py - x0y and by*cy only on the row and
+# the segment: 2 operations per (column, segment) and per (row, segment) pair.
+# Each point-segment pair then needs 12: 1 add for b.c, 1 scale by 1/|c|^2, 2
+# for the clip, 4 for dx and dy, 3 for dsq, 1 compare. The per-segment 1/|c|^2
+# and the per-point sqrt are left out (under 0.1% at every shape here).
+OPS_PER_PAIR = 12
+OPS_PER_LINE = 2
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
 
 
 def build_loc64_problem(nr: int, dtype, device):
@@ -155,20 +178,70 @@ def compare_fields(got, ref, tol: float) -> dict:
             "lam_err": lam_err, "dvec_err": dvec_err}
 
 
-def cuda_median_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
-    for _ in range(warm):
-        fn()
+def _events_ms(run) -> float:
+    """Device time of ``run()``, by a CUDA event pair around it."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    run()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def device_ms(fn, launches: int = BACK_TO_BACK, samples: int = SAMPLES) -> float:
+    """Device time of one call of ``fn``: events around ``launches``
+    back-to-back calls, over their count, median of ``samples`` runs after a
+    warm-up run.
+
+    Before each run a spin kernel (torch.cuda._sleep) holds the stream for
+    longer than the host takes to enqueue the run, so the calls reach the
+    device queued up and the events time the device's work, not the
+    wrapper's checks, allocations and launch calls in between."""
+    run = lambda: [fn() for _ in range(launches)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()                                              # warm-up; enqueue time
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = _events_ms(lambda: torch.cuda._sleep(1_000_000)) / 1e6  # per cycle
+    hold = int((2.0 * enqueue_ms + 1.0) / spin_ms)
     times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    for _ in range(samples):
+        torch.cuda._sleep(hold)
+        times.append(_events_ms(run) / launches)
     return statistics.median(times)
+
+
+def kernel_bound(verts, tgrid, ugrid) -> tuple[float, str]:
+    """(least time in ms, "operations" or "bytes") for the distance field of
+    these inputs on the card: OPS_PER_PAIR per point-segment pair and
+    OPS_PER_LINE per grid row or column and segment at the dtype's peak, or
+    the inputs read once and d, iclose, lam, dvec written once at the HBM
+    rate, whichever is longer."""
+    bsz, nt = verts.shape[:2]
+    ntg, nu = tgrid.shape[1], ugrid.shape[1]
+    npts = bsz * ntg * nu
+    es = verts.element_size()
+    ops = bsz * (nt - 1) * (OPS_PER_PAIR * nu * ntg + OPS_PER_LINE * (nu + ntg))
+    ops_ms = ops / PEAK_OPS[verts.dtype] * 1e3
+    nbytes = es * (verts.numel() + tgrid.numel() + ugrid.numel()) + npts * (4 * es + 4)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def ptxas_by_variant(log: str) -> dict:
+    """{(dtype, S): "N registers, ... spill ..."} from ptxas -v output of
+    the distance-field library."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*distance_field_kernelI([fd])Li(\d+)E", line)
+        if m:
+            key = ({"f": torch.float32, "d": torch.float64}[m[1]], int(m[2]))
+            out[key] = ""
+        elif key is not None and ("spill" in line or "Used" in line):
+            out[key] = (out[key] + "; " if out[key] else "") + line.split(":")[-1].strip()
+    return out
 
 
 def host_median_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
@@ -212,22 +285,35 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_distance._library()
     print(f"[setup] {how} {lib.relative_to(REPO)} in {time.perf_counter() - t0:.2f} s")
+    ptxas = ptxas_by_variant(_build.ptxas_log("distance_field"))
+    spilling = [k for k, v in ptxas.items() if re.search(r"[1-9]\d* bytes spill", v)]
+    print(f"[setup] ptxas -v: {len(ptxas)} kernel variants (dtype, S), "
+          f"{len(spilling)} with spills {[(str(k[0])[6:], k[1]) for k in spilling]}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def variant(args):
+        bsz, nt = args[0].shape[:2]
+        s = cuda_distance.plan(bsz, args[2].shape[1], args[1].shape[1], nt - 1, sms)
+        return s, ptxas.get((args[0].dtype, s), "no ptxas line")
 
     # 2. kernel against its plain version at the main path's shapes
     shapes = {dt: main_path_shapes(dt, dev, golden)
               for dt in (torch.float32, torch.float64)}
-    max_abs_err = 0.0
+    max_abs_err, bit_identical = 0.0, True
     for dt, by_name in shapes.items():
         for name, args in by_name.items():
             got = DistanceField(*cuda_distance.distance_field_cuda(*args))
             ref = distance_field_torch(*args)
             torch.cuda.synchronize()
             rep = compare_fields(got, ref, TOL[dt])
+            rep["bit_identical"] = all(torch.equal(x, y) for x, y in zip(got, ref))
+            bit_identical &= rep["bit_identical"]
             max_abs_err = max(max_abs_err, rep["max_abs_err_d"])
             b, nt = args[0].shape[:2]
+            s, _ = variant(args)
             print(f"[kernel] {name} {str(dt)[6:]} B={b} nt={nt} "
-                  f"grid={args[2].shape[1]}x{args[1].shape[1]}: agree at rtol "
-                  f"{TOL[dt]:g}; {json.dumps(rep)}")
+                  f"grid={args[2].shape[1]}x{args[1].shape[1]} S={s}: agree at "
+                  f"rtol {TOL[dt]:g}; {json.dumps(rep)}")
 
     # 3. loc64 value and gradient on the card, float32, through the kernel
     opts = InvOptions(loc=True, cmt=False, mistype="OT")
@@ -237,14 +323,15 @@ def main() -> int:
     cuda_distance.LAUNCHES = 0
     v32, g32 = loc_cmt_value_and_grad(m32, prob32, opts, cfg)
     torch.cuda.synchronize()
-    launches = cuda_distance.LAUNCHES
-    if launches < 1:
-        raise AssertionError("loc64 main path launched no distance-field kernel")
+    launches = {"loc64": cuda_distance.LAUNCHES}
+    if launches["loc64"] != 1:
+        raise AssertionError(f"loc64 value+grad launched the distance-field kernel "
+                             f"{launches['loc64']} times, not once")
     v32, g32 = v32.item(), g32.double().cpu()
     if not (np.isfinite(v32) and torch.isfinite(g32).all()):
         raise AssertionError(f"non-finite loc64 result {v32} {g32}")
     print(f"[loc64] f32 on {torch.cuda.get_device_name(0)}: value {v32!r} grad "
-          f"{g32.tolist()} kernel launches {launches}")
+          f"{g32.tolist()} kernel launches {launches['loc64']}")
     cpu = torch.device("cpu")
     loc64c, cfg64, prob64c = build_loc64_problem(64, torch.float64, cpu)
     v64, g64 = loc_cmt_value_and_grad(loc64c + torch.tensor(DM, dtype=torch.float64),
@@ -261,39 +348,57 @@ def main() -> int:
     # 4. Ricker float64 on the card against the golden reference
     rprob, rcfg = build_ricker_problem(golden, torch.float64, dev)
     m = torch.tensor([0.5, 1.2, 1.1], dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    cuda_distance.LAUNCHES = 0
     w2, dm = ricker_value_and_grad(m, rprob, rcfg)
+    torch.cuda.synchronize()
+    launches["ricker"] = cuda_distance.LAUNCHES
+    if launches["ricker"] != 1:
+        raise AssertionError(f"Ricker value+grad launched the distance-field kernel "
+                             f"{launches['ricker']} times, not once")
     ref = golden["ricker_obj"]
     w2_err = abs(w2.item() - ref["w2"])
     g_err = float(np.abs(dm.cpu().numpy() - np.asarray(ref["deriv"])).max())
     print(f"[ricker] f64 on card: w2 {w2.item()!r} (|err| {w2_err:.3e}, bound "
           f"{RICKER_W2_TOL:g}), grad {dm.tolist()} (max |err| {g_err:.3e}, bound "
-          f"{RICKER_GRAD_TOL:g})")
+          f"{RICKER_GRAD_TOL:g}), kernel launches {launches['ricker']}")
     if w2_err > RICKER_W2_TOL or g_err > RICKER_GRAD_TOL:
         raise AssertionError("Ricker objective deviates from the golden values")
 
-    # 5. timings (medians of N_TIMED calls after warm-up)
+    # 5. timings
     card = f"[{smi}]"
     _, _, prob64 = build_loc64_problem(64, torch.float64, dev)
     m64 = m32.double()
     for name, fn in (("f32", lambda: loc_cmt_value_and_grad(m32, prob32, opts, cfg)),
                      ("f64", lambda: loc_cmt_value_and_grad(m64, prob64, opts, cfg))):
         print(f"[timing] loc64 value+grad {name}: {host_median_ms(fn):.4f} ms/call "
-              f"(host clock, synchronized) {card}")
-    times = {}
+              f"(host clock, synchronized, median of {N_TIMED}) {card}")
+    rows = []
     for dt, by_name in shapes.items():
         for name, args in by_name.items():
-            k = cuda_median_ms(lambda: cuda_distance.distance_field_cuda(*args))
-            p = cuda_median_ms(lambda: distance_field_torch(*args))
-            times[(name, dt)] = (k, p)
-            print(f"[timing] distance field {name} {str(dt)[6:]}: kernel {k:.4f} ms, "
-                  f"plain {p:.4f} ms (CUDA events) {card}")
+            k = device_ms(lambda: cuda_distance.distance_field_cuda(*args))
+            plain = device_ms(lambda: distance_field_torch(*args), launches=PLAIN_BACK_TO_BACK)
+            bound, bound_by = kernel_bound(*args)
+            s, ptx = variant(args)
+            rows.append({"shape": name, "dtype": str(dt)[6:], "S": s, "ms": k,
+                         "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                         "share": bound / k})
+            print(f"[timing] distance field {name} {str(dt)[6:]} S={s}: kernel "
+                  f"{k:.6f} ms (device, {BACK_TO_BACK} back-to-back launches, median of "
+                  f"{SAMPLES}), bound {bound:.6f} ms ({bound_by}), share {bound / k:.4f}, "
+                  f"plain {plain:.4f} ms ({PLAIN_BACK_TO_BACK} back-to-back calls); "
+                  f"ptxas: {ptx} {card}")
 
-    k, p = times[("loc64", torch.float32)]
+    head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
         "source": "waveform_ot_torch/csrc/distance_field.cu",
         "replaces": "waveform_ot_tpu/ops/pallas_distance.py:52",
-        "launches": launches, "max_abs_err": max_abs_err, "ms": k, "plain_ms": p,
+        "launches": sum(launches.values()), "launches_per_call": launches,
+        "max_abs_err": max_abs_err,
+        "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "share": head["share"], "library_ms": None, "by_shape": rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

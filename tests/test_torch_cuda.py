@@ -21,6 +21,7 @@ pytestmark = [
     pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card"),
 ]
 TOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+TIE_BOX = np.array([[0.0, 0.0], [0.0, 2.0], [4.0, 2.0], [4.0, 0.0]])  # as in the CPU test
 
 
 def _inputs(bsz, nt, nu, ntg, dtype, seed):
@@ -40,13 +41,20 @@ def _inputs(bsz, nt, nu, ntg, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("bsz,nt,nu,ntg", [
-    (192, 61, 79, 61),          # loc/CMT batch
-    (1, 256, 80, 512),          # Ricker
-    (3, 1500, 33, 257),         # more segments than one shared-memory tile
-    (5, 2, 7, 3),               # one segment, grid smaller than a block
+@pytest.mark.parametrize("bsz,nt,nu,ntg,split", [
+    (192, 61, 79, 61, None),    # loc/CMT batch: S = 1; ntg % 4 != 0
+    (1, 256, 80, 512, None),    # Ricker: B = 1, S = 8, nseg % S != 0
+    (3, 1500, 33, 257, None),   # more segments than one shared-memory tile, S = 16
+    (5, 2, 7, 3, None),         # one segment, grid smaller than a block, ntg < 4
+    (1, 4, 9, 7, 32),           # nseg = 3 < S; ntg % 4 != 0
+    (1, 40, 6, 13, 32),         # nseg % S != 0
+    (2, 40, 6, 2, 4),           # rows shorter than a thread's 4 points, split
 ])
-def test_kernel_matches_plain_version(dtype, bsz, nt, nu, ntg):
+def test_kernel_matches_plain_version(monkeypatch, dtype, bsz, nt, nu, ntg, split):
+    """The plan's S at each shape, or the S given, against the plain version;
+    ``split`` reaches splits that the plan keeps for longer polylines."""
+    if split is not None:
+        monkeypatch.setattr(cuda_distance, "plan", lambda *shape: split)
     args = _inputs(bsz, nt, nu, ntg, dtype, seed=nt)
     before = cuda_distance.LAUNCHES
     got = tfp.DistanceField(*cuda_distance.distance_field_cuda(*args))
@@ -56,6 +64,47 @@ def test_kernel_matches_plain_version(dtype, bsz, nt, nu, ntg):
     ref = tfp.distance_field_torch(*args)
     rep = compare_fields(got, ref, TOL[dtype])
     assert rep["tie_flips"] <= 0.01 * got.d.numel()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("reverse", [False, True], ids=["box", "reversed_box"])
+def test_kernel_exact_tie_takes_lower_segment(monkeypatch, dtype, reverse):
+    """The CPU test's box polyline (three segments, exact arithmetic): (2, -1)
+    ties segments 0 and 2, (2, 0) ties all three; segment 0 wins in the kernel,
+    with the segments on one lane and split over four, and in the plain
+    version."""
+    arr = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                    device="cuda")[None]
+    args = (arr(TIE_BOX[::-1] if reverse else TIE_BOX), arr([1.0, 2.0, 3.0]),
+            arr([-1.0, 0.0]))
+    ref = tfp.distance_field_torch(*args)
+    assert ref.iclose[0, 0, 1].item() == 0 and ref.iclose[0, 1, 1].item() == 0
+    for split in (1, 4):
+        monkeypatch.setattr(cuda_distance, "plan", lambda *shape: split)
+        got = tfp.DistanceField(*cuda_distance.distance_field_cuda(*args))
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y), split
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_zero_length_segment(dtype):
+    """A repeated first vertex makes segment 0 zero-length and its lam NaN.
+    The plain version, like JAX, lets the NaN win. The kernel's field is the
+    box's with every index one higher: in f64 it skips the segment; in f32
+    it takes lam = 0, so the segment counts as its point and wins the ties
+    where the box's winner is its segment 0 at lam = 0."""
+    arr = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                    device="cuda")[None]
+    grid = (arr([1.0, 2.0, 3.0]), arr([-1.0, 0.0]))
+    args = (arr(np.insert(TIE_BOX, 0, TIE_BOX[0], axis=0)), *grid)
+    assert tfp.distance_field_torch(*args).lam.isnan().all()
+    got = tfp.DistanceField(*cuda_distance.distance_field_cuda(*args))
+    box = tfp.distance_field_torch(arr(TIE_BOX), *grid)
+    at_start = (box.iclose == 0) & (box.lam == 0) & (dtype == torch.float32)
+    assert at_start.any() or dtype == torch.float64
+    assert torch.equal(got.iclose, torch.where(at_start, 0, box.iclose + 1))
+    for x, y in zip((got.d, got.lam, got.dvec), (box.d, box.lam, box.dvec)):
+        assert torch.equal(x, y)
 
 
 def test_dispatcher_launches_the_kernel_for_cuda_tensors():
@@ -95,7 +144,7 @@ def test_loc_cmt_on_card_matches_cpu():
                                       prob, InvOptions(), cfg)
         res.append((v.item(), g.cpu().numpy(), cuda_distance.LAUNCHES - before))
     (vc, gc, nc), (vh, gh, nh) = res
-    assert nc >= 1 and nh == 0
+    assert nc == 1 and nh == 0
     np.testing.assert_allclose(vc, vh, rtol=1e-10)
     np.testing.assert_allclose(gc, gh, rtol=0, atol=1e-10 * np.abs(gh).max())
 

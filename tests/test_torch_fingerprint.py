@@ -42,7 +42,7 @@ def _problem(rng, bsz, nt, nu, ntg):
     t, w = _traces(rng, bsz, nt)
     u0, u1 = _windows(rng, bsz)
     spec_t = tfp.FingerprintSpec(nu=nu, ntg=ntg)
-    win = tfp.make_window(0.0, 1.0, 0.0, 0.0)._replace(u0=T(u0), u1=T(u1))
+    win = tfp.make_window(0.0, 1.0, 0.0, 0.0, device="cpu")._replace(u0=T(u0), u1=T(u1))
     verts = tfp.normalize_vertices(T(t), T(w), win)
     tg, ug = tfp.grid_axes(T(t), win, spec_t)
     return t, w, u0, u1, verts, tg.expand(bsz, ntg), ug.expand(bsz, nu)
@@ -66,7 +66,7 @@ def test_grid_axes_and_vertices_match_jax(theta):
     t, w = _traces(rng, bsz, nt)
     t = t * 3.7 - 1.1
     u0, u1 = _windows(rng, bsz)
-    win = tfp.make_window(-1.3, 2.9, 0.0, 0.0, theta=theta)._replace(
+    win = tfp.make_window(-1.3, 2.9, 0.0, 0.0, theta=theta, device="cpu")._replace(
         u0=T(u0), u1=T(u1))
     for nu, ntg in ((79, 61), (80, 512), (37, 301)):
         spec = tfp.FingerprintSpec(nu=nu, ntg=ntg)
@@ -120,6 +120,43 @@ def test_distance_field_torch_matches_jnp(monkeypatch, nt, nu, ntg, chunk_pairs)
         _assert_fields_agree(got, ref, 1e-12)
 
 
+TIE_BOX = np.array([[0.0, 0.0], [0.0, 2.0], [4.0, 2.0], [4.0, 0.0]])
+"""Three segments; every product below is exact in binary. The grid point
+(2, -1) is sqrt(5) from segments 0 and 2 (at their ends (0, 0) and (4, 0))
+and 3 from segment 1; (2, 0) is 2 from all three."""
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["box", "reversed_box"])
+def test_distance_field_exact_tie_takes_lower_segment(reverse):
+    """At exact ties between non-adjacent segments the first (lowest) index
+    wins, in the plain version as in _distance_field_jnp; all fields 1e-15."""
+    verts = T(TIE_BOX[::-1] if reverse else TIE_BOX)[None]
+    tg, ug = T([1.0, 2.0, 3.0])[None], T([-1.0, 0.0])[None]
+    fld = tfp.distance_field_torch(verts, tg, ug)
+    assert fld.iclose[0, 0, 1] == 0 and fld.iclose[0, 1, 1] == 0
+    assert fld.d[0, 0, 1] == np.sqrt(5.0) and fld.d[0, 1, 1] == 2.0
+    ref = jfp._distance_field_jnp(jnp.asarray(verts[0].numpy()),
+                                  jnp.asarray(tg[0].numpy()), jnp.asarray(ug[0].numpy()))
+    np.testing.assert_array_equal(fld.iclose[0].numpy(), np.asarray(ref.iclose))
+    for a, b in zip((fld.d, fld.lam, fld.dvec), (ref.d, ref.lam, ref.dvec)):
+        np.testing.assert_allclose(a[0].numpy(), np.asarray(b), rtol=0, atol=1e-15)
+
+
+def test_distance_field_zero_length_segment_matches_jnp():
+    """A repeated vertex makes segment 1 zero-length, so its lam is 0/0 in
+    JAX and 0*inf in the plain version: NaN in both, kept by the clip, and
+    argmin takes the NaN as the minimum in both."""
+    verts = T(np.insert(TIE_BOX, 1, TIE_BOX[1], axis=0))[None]
+    tg, ug = T([1.0, 2.0, 3.0])[None], T([-1.0, 0.0])[None]
+    fld = tfp.distance_field_torch(verts, tg, ug)
+    ref = jfp._distance_field_jnp(jnp.asarray(verts[0].numpy()),
+                                  jnp.asarray(tg[0].numpy()), jnp.asarray(ug[0].numpy()))
+    np.testing.assert_array_equal(fld.iclose[0].numpy(), np.asarray(ref.iclose))
+    assert (fld.iclose == 1).all() and fld.lam.isnan().all()
+    for a, b in zip((fld.d, fld.lam, fld.dvec), (ref.d, ref.lam, ref.dvec)):
+        np.testing.assert_array_equal(a[0].numpy(), np.asarray(b))
+
+
 def test_distance_field_dispatch_on_cpu_uses_plain_version():
     rng = np.random.default_rng(5)
     _, _, _, _, verts, tg, ug = _problem(rng, 2, 20, 9, 11)
@@ -159,7 +196,7 @@ def test_fingerprint_density_and_gradient_match_jax(q):
     spec = tfp.FingerprintSpec(nu=nu, ntg=ntg)
     weight = rng.random((bsz, nu, ntg))
     tt, tw, tu0, tu1 = (T(a).requires_grad_(True) for a in (t, w, u0, u1))
-    win = tfp.make_window(0.0, 1.0, 0.0, 0.0)._replace(u0=tu0, u1=tu1)
+    win = tfp.make_window(0.0, 1.0, 0.0, 0.0, device="cpu")._replace(u0=tu0, u1=tu1)
     pdf, (tg, ug) = tfp.fingerprint_density(tt, tw, win, spec, lambdav=0.04, q=q)
     assert tg.shape == (bsz, ntg) and ug.shape == (bsz, nu)
     loss = (pdf * T(weight)).sum()

@@ -70,7 +70,7 @@ def _assert_value_grad(v, g, ref_v, ref_g):
 
 def test_loc_cmt_value_and_grad_matches_jax(jax_loc):
     _, cfg, prob, m, ref_v, ref_g = jax_loc
-    tprob = convert.loc_cmt_problem(prob)
+    tprob = convert.loc_cmt_problem(prob, device="cpu")
     assert tprob.targets.t.pdf.shape == (3 * NR, cfg.ntg)
     v, g = t_loc_cmt_value_and_grad(torch.tensor(m), tprob, TInvOptions(),
                                     _t_cfg(cfg))
@@ -99,8 +99,8 @@ def test_loc_cmt_options_match_jax(jax_loc, opts):
     ref_v, ref_g = jax.jit(lambda a, pp: loc_cmt_value_and_grad(a, pp, jo, cfg,
                                                                 impl="jnp"))(
         jnp.asarray(mm), prob)
-    v, g = t_loc_cmt_value_and_grad(torch.tensor(mm), convert.loc_cmt_problem(prob),
-                                    TInvOptions(**opts), _t_cfg(cfg))
+    tprob = convert.loc_cmt_problem(prob, device="cpu")
+    v, g = t_loc_cmt_value_and_grad(torch.tensor(mm), tprob, TInvOptions(**opts), _t_cfg(cfg))
     assert g.shape == (mm.shape[0],)
     _assert_value_grad(v, g, float(ref_v), np.asarray(ref_g))
 
@@ -108,7 +108,7 @@ def test_loc_cmt_options_match_jax(jax_loc, opts):
 def test_loc_cmt_objective_module(jax_loc):
     """LocCMTObjective holds the problem as buffers; .to() moves and casts it."""
     _, cfg, prob, m, ref_v, ref_g = jax_loc
-    obj = LocCMTObjective(convert.loc_cmt_problem(prob, dtype=torch.float32),
+    obj = LocCMTObjective(convert.loc_cmt_problem(prob, device="cpu", dtype=torch.float32),
                           TInvOptions(), _t_cfg(cfg))
     assert all(b.dtype == torch.float32 for b in obj.buffers())
     obj = obj.double()
@@ -123,7 +123,7 @@ def test_port_builds_the_same_loc_problem(jax_loc):
     """The port's build_loc_cmt_problem and chip_smoke's bench builder give
     JAX's windows and targets (1e-12) and its value and gradient."""
     _, cfg, prob, m, ref_v, ref_g = jax_loc
-    jp = convert.loc_cmt_problem(prob)
+    jp = convert.loc_cmt_problem(prob, device="cpu")
     loc, tcfg, tp = chip_smoke.build_loc64_problem(NR, torch.float64, torch.device("cpu"))
     np.testing.assert_allclose(tp.seis_obs.numpy(), jp.seis_obs.numpy(), rtol=0,
                                atol=1e-12 * jp.seis_obs.abs().max().item())
@@ -152,7 +152,7 @@ def test_seismograms_and_moment_tensor_match_jax():
     tm = t_mxyz(torch.from_numpy(vals))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     jsdr = moment_tensor_from_sdr(30.0, 60.0, 45.0, m0=5.0e6)
-    tsdr = t_sdr(30.0, 60.0, 45.0, m0=5.0e6)
+    tsdr = t_sdr(30.0, 60.0, 45.0, m0=5.0e6, device="cpu")
     np.testing.assert_allclose(tsdr.numpy(), np.asarray(jsdr), rtol=1e-13, atol=1e-6)
     jt, js = synthetic_seismograms(1.5, -2.0, 9.0, jsdr,
                                    StationSet(jnp.asarray(sx), jnp.asarray(sy)), nt=40)
@@ -205,7 +205,7 @@ def test_ricker_converted_problem_matches_jax(jax_ricker):
     m = jnp.array([0.7, 1.1, 1.3])
     ref_v, ref_g = jax.jit(lambda mm: ricker_value_and_grad(mm, prob, cfg,
                                                             impl="jnp"))(m)
-    tprob = convert.ricker_problem(prob)
+    tprob = convert.ricker_problem(prob, device="cpu")
     tcfg = TTraceConfig(nu=cfg.nu, ntg=cfg.ntg, lambdav=cfg.lambdav, q=cfg.q,
                         p=cfg.p, transform=cfg.transform)
     v, g = t_ricker_value_and_grad(torch.tensor(np.asarray(m)), tprob, tcfg)

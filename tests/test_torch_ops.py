@@ -14,9 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from waveform_ot_torch import _build
+from waveform_ot_torch import _build, convert
+from waveform_ot_torch.inversion.pipeline import grid6_to_window
+from waveform_ot_torch.models.seismo import MediumConfig, moment_tensor_from_sdr
 from waveform_ot_torch.ops import cuda_distance
 from waveform_ot_torch.ops import errors as t_errors
+from waveform_ot_torch.ops.fingerprint import make_window
 from waveform_ot_torch.ops.marginal import marg_wasserstein_value as t_marg
 from waveform_ot_torch.ops.otpdf import make_density_1d as t_make_density_1d
 from waveform_ot_torch.ops.otpdf import marginals_raw as t_marginals_raw
@@ -185,3 +188,77 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     g = torch.zeros(1, 4, dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_distance.distance_field_cuda(v, g, g)
+
+
+class _FakeJaxObject:
+    """Stands in for any JAX problem object that convert reads: every field
+    is another such object and reads as a length-2 array."""
+
+    def __getattr__(self, name):
+        if name.startswith("__"):        # numpy's array protocols
+            raise AttributeError(name)
+        return _FakeJaxObject()
+
+    def __array__(self, dtype=None, copy=None):
+        return np.zeros(2)
+
+    def __iter__(self):
+        return iter((0.0, 1.0))
+
+    def __float__(self):
+        return 0.0
+
+
+_FAKE = _FakeJaxObject()
+DEFAULT_DEVICE_ENTRY_POINTS = {
+    "convert.tensor": lambda: convert.tensor(np.zeros(2)),
+    "convert.targets": lambda: convert.targets(_FAKE),
+    "convert.window": lambda: convert.window(_FAKE),
+    "convert.loc_cmt_problem": lambda: convert.loc_cmt_problem(_FAKE),
+    "convert.ricker_problem": lambda: convert.ricker_problem(_FAKE),
+    "make_window": lambda: make_window(0.0, 1.0, -1.0, 1.0),
+    "grid6_to_window": lambda: grid6_to_window((0.0, 1.0, -1.0, 1.0, 3, 4))[0],
+    "moment_tensor_from_sdr": lambda: moment_tensor_from_sdr(30.0, 60.0, 45.0),
+    "MediumConfig.default": MediumConfig.default,
+}
+
+
+@pytest.mark.parametrize("name", list(DEFAULT_DEVICE_ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Without ``device`` the tensors go to the card: where torch has no CUDA
+    the call raises, and it never lands silently on the CPU."""
+    try:
+        out = DEFAULT_DEVICE_ENTRY_POINTS[name]()
+    except (AssertionError, RuntimeError) as e:   # torch built without CUDA
+        assert not torch.cuda.is_available(), e
+        assert "CUDA" in str(e) or "cuda" in str(e)
+        return
+    leaves = [out] if isinstance(out, torch.Tensor) else list(_tensors(out))
+    assert leaves and all(x.is_cuda for x in leaves)
+
+
+def _tensors(tree):
+    for x in tree:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, tuple):
+            yield from _tensors(x)
+
+
+@pytest.mark.parametrize("shape,expected", [
+    ((192, 79, 61, 60), 1),       # loc/CMT batch: enough groups alone
+    ((1, 80, 512, 255), 8),       # Ricker: the segments split 8 ways
+    ((1, 800, 600, 625), 4),      # 800x600 fingerprint: long lanes split
+    ((3, 79, 61, 60), 4),         # one station: floor of 8 segments per lane
+    ((12, 79, 61, 60), 4),
+    ((48, 79, 61, 60), 2),        # 16 stations: the card fills at S = 2
+    ((1, 9, 7, 3), 1),            # too few segments to split
+    ((5, 7, 3, 1), 1),            # short rows, one segment
+    ((3, 33, 257, 1499), 16),     # filled at 16, lanes too short to go on
+    ((1, 1, 1, 5000), 32),        # at most one warp per point group
+    ((192, 79, 61, 20000), 32),   # full card, but lanes of 625 segments
+])
+def test_kernel_plan(shape, expected):
+    """S, the lanes per point group of the distance-field kernel, on a
+    132-SM card."""
+    assert cuda_distance.plan(*shape, sms=132) == expected

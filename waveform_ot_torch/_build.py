@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled at first use into a shared library with
 a plain C interface, ``_build/<name>-<hash>.so``, where the hash covers the
 source and the compiler flags, so an edited source or flag set builds anew
 and an unchanged one is reused. The library is loaded with ``ctypes``; the
-caller declares each function's ``argtypes``.
+caller declares each function's ``argtypes``. What ``ptxas -v`` reported for
+each kernel (registers, shared memory, spills) is kept beside the library
+and read back by :func:`ptxas_log`.
 
 A missing ``nvcc`` or a failed compile raises :class:`KernelBuildError`.
 Nothing here substitutes another implementation.
@@ -27,7 +29,7 @@ _BUILD_DIR = Path(__file__).parent / "_build"
 _CUDA_DEFAULT_HOME = Path("/usr/local/cuda")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 
 class KernelBuildError(RuntimeError):
@@ -78,6 +80,7 @@ def build(name: str) -> Path:
             raise KernelBuildError(
                 f"nvcc failed (rc={proc.returncode}) on {name}.cu:\n"
                 f"{proc.stderr[-4000:]}")
+        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
@@ -88,3 +91,8 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (at first use) and load the kernel library ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name)))
+
+
+def ptxas_log(name: str) -> str:
+    """What ``ptxas -v`` printed when ``csrc/<name>.cu`` was built."""
+    return library_path(name).with_suffix(".ptxas.txt").read_text()

@@ -4,7 +4,7 @@ The JAX package's ``LocCMTProblem`` and ``RickerProblem`` (with their
 ``Window``, ``Targets``/``Density1D``, ``StationSet`` and ``MediumConfig``)
 are read by field name, array by array through numpy, so this module never
 imports JAX. Each array becomes a tensor on ``device``; floating arrays
-take ``dtype``.
+take ``dtype``. The device is the card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from waveform_ot_torch.ops.fingerprint import Window
 from waveform_ot_torch.ops.otpdf import Density1D
 
 
-def tensor(a, device=None, dtype=torch.float64) -> torch.Tensor:
+def tensor(a, device="cuda", dtype=torch.float64) -> torch.Tensor:
     """One array as a tensor; floating arrays are cast to ``dtype``."""
     t = torch.tensor(np.asarray(a))
     if t.is_floating_point():
@@ -39,16 +39,16 @@ def _density(obj, device, dtype) -> Density1D:
     return Density1D(*(x[None] for x in d)) if d.pdf.dim() == 1 else d
 
 
-def targets(obj, device=None, dtype=torch.float64) -> Targets:
+def targets(obj, device="cuda", dtype=torch.float64) -> Targets:
     """Observed marginals, batched over traces."""
     return Targets(t=_density(obj.t, device, dtype), u=_density(obj.u, device, dtype))
 
 
-def window(obj, device=None, dtype=torch.float64) -> Window:
+def window(obj, device="cuda", dtype=torch.float64) -> Window:
     return _fields(Window, obj, device, dtype)
 
 
-def loc_cmt_problem(prob, device=None, dtype=torch.float64) -> LocCMTProblem:
+def loc_cmt_problem(prob, device="cuda", dtype=torch.float64) -> LocCMTProblem:
     """The port's LocCMTProblem from the JAX package's."""
     arr = lambda name: tensor(getattr(prob, name), device, dtype)
     return LocCMTProblem(
@@ -61,7 +61,7 @@ def loc_cmt_problem(prob, device=None, dtype=torch.float64) -> LocCMTProblem:
         fc=arr("fc"))
 
 
-def ricker_problem(prob, device=None, dtype=torch.float64) -> RickerProblem:
+def ricker_problem(prob, device="cuda", dtype=torch.float64) -> RickerProblem:
     """The port's RickerProblem from the JAX package's."""
     return RickerProblem(targets=targets(prob.targets, device, dtype),
                          window=window(prob.window, device, dtype),

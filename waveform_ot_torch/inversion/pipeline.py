@@ -83,9 +83,9 @@ def trace_misfit(t, w, win: Window, targets: Targets, cfg: TraceConfig):
     return marg_wasserstein_value(pdf, tg, ug, targets.t, targets.u, p=cfg.p)
 
 
-def grid6_to_window(grid6, dtype=torch.float64, device=None):
-    """Reference 6-tuple (t0, t1, u0, u1, Nu, Nt) -> (45-degree Window,
-    FingerprintSpec)."""
+def grid6_to_window(grid6, dtype=torch.float64, device="cuda"):
+    """Reference 6-tuple (t0, t1, u0, u1, Nu, Nt) -> (45-degree Window on
+    ``device``, FingerprintSpec)."""
     t0, t1, u0, u1, nu, ntg = grid6
     win = make_window(t0, t1, u0, u1, theta=45.0, dtype=dtype, device=device)
     return win, FingerprintSpec(nu=int(nu), ntg=int(ntg))

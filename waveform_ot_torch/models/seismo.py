@@ -21,8 +21,8 @@ def mxyz_from_upper(vals: torch.Tensor) -> torch.Tensor:
 
 
 def moment_tensor_from_sdr(strike, dip, rake, m0=1.0, degrees=True,
-                           dtype=torch.float64, device=None) -> torch.Tensor:
-    """Double-couple moment tensor (x=North, y=East, z=Up) from
+                           dtype=torch.float64, device="cuda") -> torch.Tensor:
+    """Double-couple moment tensor (x=North, y=East, z=Up) on ``device`` from
     strike/dip/rake (Aki & Richards eqn 4.88-4.89, rotated to cartesian)."""
     arr = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     strike, dip, rake = arr(strike), arr(dip), arr(rake)
@@ -59,7 +59,7 @@ class MediumConfig(NamedTuple):
     rho: torch.Tensor
 
     @staticmethod
-    def default(dtype=torch.float64, device=None) -> "MediumConfig":
+    def default(dtype=torch.float64, device="cuda") -> "MediumConfig":
         arr = lambda v: torch.tensor(v, dtype=dtype, device=device)
         return MediumConfig(vp=arr(6.0), vs=arr(3.46), rho=arr(2.7))
 

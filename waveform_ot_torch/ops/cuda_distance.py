@@ -2,10 +2,25 @@
 
 Replaces the Pallas TPU kernel ``waveform_ot_tpu/ops/pallas_distance.py``
 (``_kernel``). The kernel's design and what bounds it are described in the
-CUDA source. This module checks the inputs, allocates the outputs, launches
-on PyTorch's current stream without synchronizing, and raises if the launch
-is refused. The plain version is
-:func:`waveform_ot_torch.ops.fingerprint.distance_field_torch`.
+CUDA source. This module checks the inputs, picks the kernel's split with
+:func:`plan`, allocates the outputs, launches on PyTorch's current stream
+without synchronizing, and raises if the launch is refused. The plain
+version is :func:`waveform_ot_torch.ops.fingerprint.distance_field_torch`.
+
+The split rule. A thread owns P = 4 consecutive time points of one
+amplitude row, which gives B*nu*ceil(ntg/4) point groups. S (a power of two,
+at most 32) doubles while either
+
+  * the groups times S are fewer than LANES_PER_SM on each of the card's
+    SMs and each lane keeps at least MIN_SEGMENTS_PER_LANE segments, or
+  * each lane keeps at least LONG_LANE segments,
+
+and S lanes then split each group's segments between them. The constants
+fit a sweep of every S at the main path's shapes and at loc/CMT batches of
+3, 12 and 48 traces (``ab_distance_field.py``; its readings are in
+PERF.md): S = 1 for the loc/CMT batch (192 traces, 79x61 grid, 60
+segments), 8 for one trace's 80x512 Ricker grid (255 segments), 4 for the
+800x600 fingerprint (625 segments) and for 3 or 12 loc/CMT traces.
 """
 
 from __future__ import annotations
@@ -20,10 +35,38 @@ from waveform_ot_torch import _build
 LAUNCHES = 0
 """Kernel launches in this process; incremented once per launch."""
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SYMBOLS = {torch.float32: "wot_distance_field_f32",
             torch.float64: "wot_distance_field_f64"}
 _MAX_BATCH = 65535  # gridDim.y
+POINTS = 4           # grid points per thread, fixed in the kernel
+MAX_S = 32           # lanes per point group: one warp
+LANES_PER_SM = 512
+"""Below this many lanes per SM a split still pays: Ricker's 10,240 groups
+gain up to S = 8 (620 lanes per SM) and lose at 16."""
+MIN_SEGMENTS_PER_LANE = 8
+"""The fill clause's floor: 3 loc/CMT traces gain up to S = 4 (15 of the 60
+segments per lane) and lose at 8."""
+LONG_LANE = 128
+"""A lane this long splits whatever the fill: the 800x600 fingerprint gains
+up to S = 4 (156 of 625 segments per lane) and loses at 8."""
+
+
+def plan(bsz: int, nu: int, ntg: int, nseg: int, sms: int) -> int:
+    """S, the lanes per point group, for a (bsz, nu, ntg) grid and nseg
+    segments on a card with ``sms`` SMs (the rule is in the module docstring)."""
+    groups = bsz * nu * -(-ntg // POINTS)
+    s = 1
+    while s < MAX_S and (
+            (groups * s < sms * LANES_PER_SM and nseg >= 2 * s * MIN_SEGMENTS_PER_LANE)
+            or nseg >= 2 * s * LONG_LANE):
+        s *= 2
+    return s
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -78,6 +121,7 @@ def distance_field_cuda(verts, tgrid, ugrid):
         raise ValueError("grid or polyline too large for int32 indexing")
 
     lib = _library()
+    s = plan(bsz, nu, ntg, nt - 1, _sm_count(dev.index))
     d = torch.empty(bsz, nu, ntg, dtype=dt, device=dev)
     iclose = torch.empty(bsz, nu, ntg, dtype=torch.int32, device=dev)
     lam = torch.empty(bsz, nu, ntg, dtype=dt, device=dev)
@@ -87,7 +131,7 @@ def distance_field_cuda(verts, tgrid, ugrid):
         rc = getattr(lib, _SYMBOLS[dt])(
             verts.data_ptr(), tgrid.data_ptr(), ugrid.data_ptr(), d.data_ptr(),
             iclose.data_ptr(), lam.data_ptr(), dvec.data_ptr(),
-            bsz, nt, ntg, nu, stream)
+            bsz, nt, ntg, nu, s, stream)
     if rc != 0:
         msg = lib.wot_cuda_error_string(rc).decode()
         raise RuntimeError(f"distance_field kernel launch failed: {msg} ({rc})")

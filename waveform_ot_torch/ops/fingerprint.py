@@ -9,13 +9,17 @@ The distance field has two implementations behind :func:`distance_field`:
 the plain PyTorch version :func:`distance_field_torch` (CPU tensors) and
 the hand-written CUDA kernel in ``csrc/distance_field.cu``
 (:mod:`waveform_ot_torch.ops.cuda_distance`, CUDA tensors). Both compute,
-for every grid point p and segment (x0, c),
+for every grid point p and segment (x0, c), with il = 1/|c|^2 once per
+segment (as the TPU kernel's ``_pack_segments`` stages it),
 
-    b = p - x0;  lam = clip(b.c / |c|^2, 0, 1);  dsq = |b - lam*c|^2
+    b = p - x0;  lam = clip(b.c * il, 0, 1);  dsq = |b - lam*c|^2
 
 with the same operations in the same order, keep the first minimum
 (np.argmin ties), and return d, the winning segment, its lam and the
-offset p - x*. The backward pass is the envelope rule of the JAX module
+offset p - x*. They part only at a zero-length segment, whose lam is NaN:
+``torch.clamp`` keeps it and lets it win the argmin, as JAX does, while the
+kernel takes lam = 0 (float32) or skips the segment (float64), which gives
+the same d. The backward pass is the envelope rule of the JAX module
 (see :func:`_distance_vjp`), in plain PyTorch on both devices.
 """
 
@@ -50,9 +54,10 @@ class Window(NamedTuple):
 
 def make_window(t0, t1, u0, u1, theta: float | None = None,
                 tantheta: float | None = None, dtype=torch.float64,
-                device=None) -> Window:
-    """Build a Window; ``tantheta`` takes precedence over ``theta``
-    (degrees). Default is 45 degrees given as tantheta = 1."""
+                device="cuda") -> Window:
+    """Build a Window on ``device`` (the card unless asked otherwise);
+    ``tantheta`` takes precedence over ``theta`` (degrees). Default is 45
+    degrees given as tantheta = 1."""
     arr = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     if tantheta is None:
         tantheta = 1.0 if theta is None else torch.tan(torch.deg2rad(arr(theta)))
@@ -147,8 +152,8 @@ def distance_field_torch(verts, tgrid, ugrid) -> DistanceField:
     x0x, x0y = verts[:, :-1, 0], verts[:, :-1, 1]            # (B, nseg)
     cx = verts[:, 1:, 0] - x0x
     cy = verts[:, 1:, 1] - x0y
-    lsq = cx * cx + cy * cy
-    x0x, x0y, cx, cy, lsq = (v[:, None, :] for v in (x0x, x0y, cx, cy, lsq))
+    il = torch.reciprocal(cx * cx + cy * cy)
+    x0x, x0y, cx, cy, il = (v[:, None, :] for v in (x0x, x0y, cx, cy, il))
     pt = tgrid[:, None, :].expand(bsz, nu, ntg).reshape(bsz, n)
     pu = ugrid[:, :, None].expand(bsz, nu, ntg).reshape(bsz, n)
 
@@ -162,7 +167,7 @@ def distance_field_torch(verts, tgrid, ugrid) -> DistanceField:
         bx = pt[:, k0:k1, None] - x0x                          # (B, c, nseg)
         by = pu[:, k0:k1, None] - x0y
         bc = bx * cx + by * cy
-        lam = torch.clamp(bc / lsq, 0.0, 1.0)
+        lam = torch.clamp(bc * il, 0.0, 1.0)
         dx = bx - lam * cx
         dy = by - lam * cy
         dsq = dx * dx + dy * dy
