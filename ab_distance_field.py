@@ -5,9 +5,10 @@ earlier revision of it.
     git show <rev>:waveform_ot_torch/csrc/distance_field.cu > _chipcheck/old.cu
     python3 ab_distance_field.py --old _chipcheck/old.cu
 
-Device times come from ``chip_smoke.device_ms`` and bounds from
-``chip_smoke.kernel_bound``, at chip_smoke.py's shapes (loc64, Ricker,
-bigfp) in float32 and float64, plus the loc64 grid at fewer traces.
+Device times come from ``chip_smoke.device_ms`` (with chip_smoke's
+launches per run for each shape) and bounds from ``chip_smoke.kernel_bound``,
+at chip_smoke.py's shapes (loc64, Ricker, bigfp, one multistart evaluation,
+the scan) in float32 and float64, plus the loc64 grid at fewer traces.
 
   * The sweep times the kernel at every split S it is built for (1, 2, 4,
     ..., 32 lanes per point group), marks the S that ``cuda_distance.plan``
@@ -100,6 +101,11 @@ def shapes(dev, golden) -> list:
     return out
 
 
+def launches_for(name: str) -> int:
+    """Back-to-back launches per timed run at the shape ``name``."""
+    return chip_smoke.BACK_TO_BACK_BY_SHAPE.get(name, chip_smoke.BACK_TO_BACK)
+
+
 def sweep(cases, sms: int, smi: str) -> list:
     from waveform_ot_torch.ops import cuda_distance
 
@@ -112,7 +118,7 @@ def sweep(cases, sms: int, smi: str) -> list:
         for s in SPLITS:
             with forced_split(s):
                 times[s] = chip_smoke.device_ms(
-                    lambda: cuda_distance.distance_field_cuda(*args))
+                    lambda: cuda_distance.distance_field_cuda(*args), launches=launches_for(name))
         best = min(times, key=times.get)
         rows.append({"shape": name, "dtype": str(dt)[6:], "plan_S": picked, "best_S": best,
                      "ms_by_S": times, "bound_ms": bound})
@@ -142,7 +148,8 @@ def ab(cases, old, smi: str) -> tuple[list, dict]:
         for who in ("old", "new", "new", "old"):
             with kernel_library(old if who == "old" else new):
                 t[who].append(chip_smoke.device_ms(
-                    lambda: cuda_distance.distance_field_cuda(*args)))
+                    lambda: cuda_distance.distance_field_cuda(*args),
+                    launches=launches_for(name)))
         bound, bound_by = chip_smoke.kernel_bound(*args)
         row = {"shape": name, "dtype": str(dt)[6:],
                "old_ms": sum(t["old"]) / 2, "new_ms": sum(t["new"]) / 2,

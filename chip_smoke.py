@@ -9,8 +9,9 @@ is non-zero:
                 it comes), kernel build time, what ptxas reported for the
                 kernel's variants (registers, spills);
   2. kernel     the CUDA distance-field kernel against its plain PyTorch
-                version on the card, at the main path's three shapes
-                (loc64 batch, Ricker, 800x600 fingerprint), float32 and
+                version on the card, at the main path's five shapes
+                (loc64 batch, Ricker, 800x600 fingerprint, one evaluation of
+                the 64-start study, the 1,764-node scan), float32 and
                 float64, and whether the two are bit for bit identical;
   3. loc64      the headline: batched loc/CMT W2 misfit + gradient w.r.t.
                 the source location, 64 stations x 3 components, float32 on
@@ -24,7 +25,21 @@ is non-zero:
                 (CUDA events around runs of back-to-back launches, see
                 device_ms), its bound from the shapes (kernel_bound), its
                 share of the bound, the plain version's time, and the
-                kernel variant's ptxas line.
+                kernel variant's ptxas line;
+  6. multistart the bench's Fig 12 study on 11 stations, float32: 64 random
+                starts through minimize_multi_start and through
+                minimize_lbfgs_batched_host, every start within 0.1 km of
+                the source, one kernel launch per batched evaluation of all
+                64 lanes; per study its time, outer iterations, line-search
+                trials, evaluations, launches and failed lanes;
+  7. scan       the bench's 21x21x4 misfit-surface scan on 11 stations,
+                float32: value and gradient at all 1,764 nodes in one call
+                through one kernel launch, 8 nodes against float64 on the
+                CPU; its time, peak device memory and the kernel's share;
+  8. inversion  the Ricker scipy L-BFGS-B inversion in float64 on the card,
+                recorded by an InversionTrace: within 0.02 of the truth and
+                within 1e-6 of the same inversion on the CPU, in as many
+                iterations.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -57,6 +72,20 @@ RICKER_GRAD_TOL = 5e-7
 BACK_TO_BACK = 50                # kernel launches per timed run
 SAMPLES = 5                      # timed runs; their median is reported
 PLAIN_BACK_TO_BACK = 5           # plain-version calls per timed run (~100s of launches each)
+# the scan's kernel takes ~10 ms and its plain version ~10^5 small launches:
+# fewer kernel launches per run, and the plain version once, by one event pair
+BACK_TO_BACK_BY_SHAPE = {"scan": 5}
+PLAIN_ONCE = {"scan"}
+NR_STUDY = 11                    # stations of the bench's scan and multistart
+N_STARTS = 64
+STUDY_RADIUS_KM = 0.1            # every start must end this close to LOC
+STUDY_TIMED = 3                  # study and scan timings: median of 3
+SCAN_CHECKED = 8                 # scan nodes held against float64 on the CPU
+RICKER_TRUTH = (0.0, 1.6, 1.0)
+RICKER_START = (0.7, 1.1, 1.3)
+RICKER_GRID6 = (-2.0, 7.0, -2.0, 2.6, 80, 512)
+RICKER_TRUTH_TOL = 0.02          # inversion result against the truth
+RICKER_X_TOL = 1e-6              # card inversion against the CPU one
 # The bound counts the operations these inputs need, against the H100 SXM's
 # peaks outside the tensor cores at a 700 W limit, and each input read once and
 # each output written once against HBM3. bx = px - x0x and bx*cx depend only on
@@ -114,6 +143,47 @@ def build_ricker_problem(golden: dict, dtype, device):
     return prob, cfg
 
 
+def study_starts(dtype, device) -> torch.Tensor:
+    """The bench's 64 multistart starts: LOC + uniform(-15, 15) km from
+    numpy default_rng(1)."""
+    rng = np.random.default_rng(1)
+    return torch.as_tensor(np.asarray(LOC) + rng.uniform(-15, 15, size=(N_STARTS, 3)),
+                           dtype=dtype, device=device)
+
+
+def scan_nodes(dtype, device) -> torch.Tensor:
+    """The bench's 21x21x4 scan nodes (x, y, z), (1764, 3), in the bench's
+    meshgrid(z, x, y, indexing="ij") order."""
+    zg, xg, yg = np.meshgrid(np.linspace(4, 22, 4), np.linspace(-20, 20, 21),
+                             np.linspace(-20, 20, 21), indexing="ij")
+    return torch.as_tensor(np.stack([xg.ravel(), yg.ravel(), zg.ravel()], 1),
+                           dtype=dtype, device=device)
+
+
+def build_ricker_inversion(dtype, device):
+    """The bench's Ricker inversion (``bench.bench_ricker``) in the port:
+    observed double Ricker at the truth plus 0.005*max|w| noise from numpy
+    default_rng(42), grid6 (-2, 7, -2, 2.6, 80, 512), lambda 0.03, alpha
+    0.5. Returns (prob, cfg, start)."""
+    from waveform_ot_torch.inversion import (
+        TraceConfig, build_target, grid6_to_window, make_ricker_problem,
+    )
+    from waveform_ot_torch.models import ricker_wavelet
+
+    arr = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    trange = (-2.0, 7.0)
+    tobs, wobs = ricker_wavelet(*arr(RICKER_TRUTH), trange=trange)
+    rng = np.random.default_rng(42)
+    wobs = wobs + 0.005 * float(wobs.abs().max()) * arr(rng.standard_normal(wobs.shape))
+    win, spec = grid6_to_window(RICKER_GRID6, dtype=dtype, device=device)
+    cfg = TraceConfig(nu=spec.nu, ntg=spec.ntg, lambdav=0.03, q=None, p=2, transform=True)
+    with torch.no_grad():
+        targets = build_target(tobs, wobs[None], win, cfg)
+    prob, cfg = make_ricker_problem(targets, RICKER_GRID6, trange=trange, alpha=0.5,
+                                    lambdav=0.03)
+    return prob, cfg, arr(RICKER_START)
+
+
 def _field_inputs(t, w, win, spec):
     """(verts, tgrid, ugrid), contiguous, as fingerprint_density forms them."""
     from waveform_ot_torch.ops.fingerprint import grid_axes, normalize_vertices
@@ -125,23 +195,35 @@ def _field_inputs(t, w, win, spec):
             ug.expand(bsz, spec.nu).contiguous())
 
 
-def main_path_shapes(dtype, device, golden):
-    """The distance-field inputs of the main path: {name: (verts, tgrid, ugrid)}."""
-    from waveform_ot_torch.inversion import InvOptions, apply_transform
+def loc_field_inputs(ms, prob, cfg):
+    """The distance-field inputs of one loc/CMT evaluation of the models
+    ``ms`` (k, 3): k*nr*3 traces, as misfit_from_seis forms them."""
+    from waveform_ot_torch.inversion import InvOptions
     from waveform_ot_torch.inversion.loc_cmt import (
         _flat_unit_windows, predicted_seismograms,
     )
+    from waveform_ot_torch.ops import arctan_transform
+
+    s = predicted_seismograms(ms, prob, InvOptions())
+    k, nr, nc, nt = s.shape
+    un = arctan_transform(s, prob.windows.u0[..., None], prob.windows.u1[..., None])
+    return _field_inputs(prob.t, un.reshape(k * nr * nc, nt),
+                         _flat_unit_windows(prob.windows, nr, nc, k), cfg.spec)
+
+
+def main_path_shapes(dtype, device, golden):
+    """The distance-field inputs of the main path: {name: (verts, tgrid, ugrid)}."""
+    from waveform_ot_torch.inversion import apply_transform
     from waveform_ot_torch.models import ricker_wavelet
-    from waveform_ot_torch.ops import FingerprintSpec, arctan_transform, make_window
+    from waveform_ot_torch.ops import FingerprintSpec, make_window
 
     with torch.no_grad():
         loc, cfg, prob = build_loc64_problem(64, dtype, device)
-        s = predicted_seismograms(loc + torch.tensor(DM, dtype=dtype, device=device),
-                                  prob, InvOptions())
-        nr, nc, nt = s.shape
-        un = arctan_transform(s, prob.windows.u0[..., None], prob.windows.u1[..., None])
-        loc64 = _field_inputs(prob.t, un.reshape(nr * nc, nt),
-                              _flat_unit_windows(prob.windows, nr, nc), cfg.spec)
+        loc64 = loc_field_inputs((loc + torch.tensor(DM, dtype=dtype, device=device))[None],
+                                 prob, cfg)
+        _, cfg11, prob11 = build_loc64_problem(NR_STUDY, dtype, device)
+        multistart = loc_field_inputs(study_starts(dtype, device), prob11, cfg11)
+        scan = loc_field_inputs(scan_nodes(dtype, device), prob11, cfg11)
 
         rprob, rcfg = build_ricker_problem(golden, dtype, device)
         m = torch.tensor([0.5, 1.2, 1.1], dtype=dtype, device=device)
@@ -157,7 +239,8 @@ def main_path_shapes(dtype, device, golden):
                            float(wb.max()) + 0.15 * du, dtype=dtype, device=device)
         bigfp = _field_inputs(tb.to(device, dtype), wb.to(device, dtype)[None], bwin,
                               FingerprintSpec(nu=800, ntg=600))
-    return {"loc64": loc64, "ricker": ricker, "bigfp": bigfp}
+    return {"loc64": loc64, "ricker": ricker, "bigfp": bigfp,
+            "multistart": multistart, "scan": scan}
 
 
 def compare_fields(got, ref, tol: float) -> dict:
@@ -198,7 +281,9 @@ def device_ms(fn, launches: int = BACK_TO_BACK, samples: int = SAMPLES) -> float
     longer than the host takes to enqueue the run, so the calls reach the
     device queued up and the events time the device's work, not the
     wrapper's checks, allocations and launch calls in between."""
-    run = lambda: [fn() for _ in range(launches)]
+    def run():
+        for _ in range(launches):
+            fn()   # each result is freed at once: its memory serves the next call
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()                                              # warm-up; enqueue time
@@ -244,6 +329,21 @@ def ptxas_by_variant(log: str) -> dict:
     return out
 
 
+class CountedObjective:
+    """A batched objective that counts its calls: value-only calls (the
+    solvers' line-search trials) and value+grad calls (grad mode on)."""
+
+    def __init__(self, fn):
+        self.fn, self.values, self.value_grads = fn, 0, 0
+
+    def __call__(self, ms):
+        if torch.is_grad_enabled():
+            self.value_grads += 1
+        else:
+            self.values += 1
+        return self.fn(ms)
+
+
 def host_median_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
     """Median wall time of one call, synchronized before and after."""
     for _ in range(warm):
@@ -264,7 +364,9 @@ def main() -> int:
         return 1
     from waveform_ot_torch import _build
     from waveform_ot_torch.inversion import (
-        InvOptions, loc_cmt_value_and_grad, ricker_value_and_grad,
+        InversionTrace, InvOptions, loc_cmt_misfit, loc_cmt_value_and_grad,
+        minimize_lbfgs_batched_host, minimize_multi_start, minimize_scipy,
+        ricker_value_and_grad,
     )
     from waveform_ot_torch.ops import DistanceField, cuda_distance, distance_field_torch
 
@@ -376,25 +478,145 @@ def main() -> int:
     rows = []
     for dt, by_name in shapes.items():
         for name, args in by_name.items():
-            k = device_ms(lambda: cuda_distance.distance_field_cuda(*args))
-            plain = device_ms(lambda: distance_field_torch(*args), launches=PLAIN_BACK_TO_BACK)
+            n_k = BACK_TO_BACK_BY_SHAPE.get(name, BACK_TO_BACK)
+            k = device_ms(lambda: cuda_distance.distance_field_cuda(*args), launches=n_k)
+            if name in PLAIN_ONCE:
+                torch.cuda.synchronize()
+                plain = _events_ms(lambda: distance_field_torch(*args))
+                plain_how = "one call, one event pair"
+            else:
+                plain = device_ms(lambda: distance_field_torch(*args),
+                                  launches=PLAIN_BACK_TO_BACK)
+                plain_how = f"{PLAIN_BACK_TO_BACK} back-to-back calls"
             bound, bound_by = kernel_bound(*args)
             s, ptx = variant(args)
-            rows.append({"shape": name, "dtype": str(dt)[6:], "S": s, "ms": k,
-                         "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-                         "share": bound / k})
-            print(f"[timing] distance field {name} {str(dt)[6:]} S={s}: kernel "
-                  f"{k:.6f} ms (device, {BACK_TO_BACK} back-to-back launches, median of "
-                  f"{SAMPLES}), bound {bound:.6f} ms ({bound_by}), share {bound / k:.4f}, "
-                  f"plain {plain:.4f} ms ({PLAIN_BACK_TO_BACK} back-to-back calls); "
-                  f"ptxas: {ptx} {card}")
+            rows.append({"shape": name, "dtype": str(dt)[6:], "traces": args[0].shape[0],
+                         "S": s, "ms": k, "plain_ms": plain, "bound_ms": bound,
+                         "bound_by": bound_by, "share": bound / k})
+            print(f"[timing] distance field {name} {str(dt)[6:]} B={args[0].shape[0]} "
+                  f"S={s}: kernel {k:.6f} ms (device, {n_k} back-to-back launches, median "
+                  f"of {SAMPLES}), bound {bound:.6f} ms ({bound_by}), share "
+                  f"{bound / k:.4f}, plain {plain:.4f} ms ({plain_how}); ptxas: {ptx} {card}")
+
+    # 6. the 64-start study, on-device and host-state solvers
+    _, cfg11, prob11 = build_loc64_problem(NR_STUDY, torch.float32, dev)
+    misfit11 = lambda ms: loc_cmt_misfit(ms, prob11, opts, cfg11)
+    loc_d = torch.tensor(LOC, dtype=torch.float64, device=dev)
+    starts = study_starts(torch.float32, dev)
+    per_eval = {}
+    for name, solve in (
+            ("multistart", lambda f: minimize_multi_start(f, starts, max_iter=30, tol=3e-5)),
+            ("multistart_host", lambda f: minimize_lbfgs_batched_host(
+                f, starts, max_iter=30, tol=3e-5))):
+        fun = CountedObjective(misfit11)
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        res = solve(fun)
+        torch.cuda.synchronize()
+        launches[name] = cuda_distance.LAUNCHES
+        evals = fun.values + fun.value_grads
+        per_eval[name] = launches[name] / evals
+        err = torch.linalg.vector_norm(res.x.double() - loc_d, dim=1)
+        n_failed = int(res.ls_failed.sum())
+        study_ms = host_median_ms(lambda: solve(misfit11), n=STUDY_TIMED, warm=0)
+        print(f"[{name}] {N_STARTS} starts, {NR_STUDY} stations, f32: {study_ms:.4f} ms "
+              f"per study (host clock, synchronized, median of {STUDY_TIMED}); outer "
+              f"iterations {fun.value_grads - 1}, line-search trials {fun.values}, batched "
+              f"evaluations {evals}, kernel launches {launches[name]}; ls_failed lanes "
+              f"{n_failed}; distance to the source max {err.max().item():.6f} km, median "
+              f"{err.median().item():.6f} km (bound {STUDY_RADIUS_KM:g}) {card}")
+        if launches[name] != evals:
+            raise AssertionError(f"{name}: {launches[name]} kernel launches for {evals} "
+                                 f"batched evaluations")
+        if int(res.n_iter.max()) != fun.value_grads - 1:
+            raise AssertionError(f"{name}: lane iterations {res.n_iter.tolist()} against "
+                                 f"{fun.value_grads - 1} outer iterations")
+        if not bool((err < STUDY_RADIUS_KM).all()):
+            far = torch.nonzero(err >= STUDY_RADIUS_KM).flatten().tolist()
+            raise AssertionError(f"{name}: starts {far} end up to {err.max().item()} km "
+                                 f"from the source")
+
+    # 7. the misfit-surface scan: value and gradient at every node in one call
+    nodes = scan_nodes(torch.float32, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda_distance.LAUNCHES = 0
+    sv, sg = loc_cmt_value_and_grad(nodes, prob11, opts, cfg11)
+    torch.cuda.synchronize()
+    launches["scan"] = cuda_distance.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches["scan"] != 1:
+        raise AssertionError(f"the scan launched the kernel {launches['scan']} times, not once")
+    if sv.shape != (len(nodes),) or sg.shape != nodes.shape or not (
+            bool(torch.isfinite(sv).all()) and bool(torch.isfinite(sg).all())):
+        raise AssertionError(f"scan result of shapes {sv.shape} {sg.shape} is not finite")
+    scan_ms = host_median_ms(lambda: loc_cmt_value_and_grad(nodes, prob11, opts, cfg11),
+                             n=STUDY_TIMED, warm=0)
+    krow = next(r for r in rows if r["shape"] == "scan" and r["dtype"] == "float32")
+    print(f"[scan] {len(nodes)} nodes x {NR_STUDY} stations x 3 = {krow['traces']} traces, "
+          f"f32, value+grad in one call: {scan_ms:.4f} ms per scan (host clock, "
+          f"synchronized, median of {STUDY_TIMED}); kernel launches {launches['scan']}; "
+          f"peak device memory {peak_gb:.3f} GB; kernel {krow['ms']:.6f} ms (device), "
+          f"bound {krow['bound_ms']:.6f} ms, share {krow['share']:.4f} {card}")
+    _, cfg11c, prob11c = build_loc64_problem(NR_STUDY, torch.float64, cpu)
+    pick = np.sort(np.random.default_rng(7).choice(len(nodes), SCAN_CHECKED, replace=False))
+    worst_v = worst_g = 0.0
+    for i in pick:
+        v64, g64 = loc_cmt_value_and_grad(nodes[i].double().cpu(), prob11c, opts, cfg11c)
+        worst_v = max(worst_v, abs(sv[i].item() - v64.item()) / abs(v64.item()))
+        worst_g = max(worst_g, ((sg[i].double().cpu() - g64).abs().max()
+                                / g64.abs().max()).item())
+    print(f"[scan] nodes {pick.tolist()} f32-card vs f64-cpu alone: value rel dev max "
+          f"{worst_v:.3e} (bound {VALUE_RTOL_F32:g}), grad dev / max|g| max {worst_g:.3e} "
+          f"(bound {GRAD_TOL_F32:g})")
+    if worst_v > VALUE_RTOL_F32 or worst_g > GRAD_TOL_F32:
+        raise AssertionError("scan lanes deviate from the f64 single-node evaluations")
+    del sv, sg
+    torch.cuda.empty_cache()
+
+    # 8. the Ricker scipy inversion in float64, on the card and on the CPU
+    inv = {}
+    for where, device in (("card", dev), ("cpu", cpu)):
+        rp, rc, x0 = build_ricker_inversion(torch.float64, device)
+        trace = InversionTrace()
+        fn = trace.wrap_objective(lambda mm, rp=rp, rc=rc: ricker_value_and_grad(mm, rp, rc))
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = inv[where] = minimize_scipy(fn, x0, callback=trace.scipy_callback())
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        per_it = trace.misfit_per_iterate()
+        print(f"[inversion] Ricker f64 on the {where}: x {res.x.tolist()} after {res.nit} "
+              f"iterations, {res.nfev} evaluations ({len(trace.models)} recorded), w2 "
+              f"{res.fun!r}, misfit per iterate {float(per_it[0])!r} .. "
+              f"{float(per_it[-1])!r}, kernel launches {cuda_distance.LAUNCHES}, "
+              f"{wall_ms:.1f} ms (host clock, one run), "
+              f"scipy: {res.message!r} {card}")
+        if where == "card":
+            launches["ricker_inversion"] = cuda_distance.LAUNCHES
+            per_eval["ricker_inversion"] = cuda_distance.LAUNCHES / res.nfev
+            if cuda_distance.LAUNCHES != res.nfev or len(trace.models) != res.nfev:
+                raise AssertionError(f"{cuda_distance.LAUNCHES} launches and "
+                                     f"{len(trace.models)} records for {res.nfev} evaluations")
+    truth_err = float(np.abs(inv["card"].x - np.asarray(RICKER_TRUTH)).max())
+    x_err = float(np.abs(inv["card"].x - inv["cpu"].x).max())
+    print(f"[inversion] card vs cpu: max |x diff| {x_err:.3e} (bound {RICKER_X_TOL:g}), "
+          f"iterations {inv['card'].nit} vs {inv['cpu'].nit}; card max |x - truth| "
+          f"{truth_err:.3e} (bound {RICKER_TRUTH_TOL:g})")
+    if truth_err > RICKER_TRUTH_TOL:
+        raise AssertionError(f"the Ricker inversion ends {truth_err} from the truth")
+    if x_err > RICKER_X_TOL or inv["card"].nit != inv["cpu"].nit:
+        raise AssertionError("the Ricker inversion on the card parts from the CPU one")
 
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
         "source": "waveform_ot_torch/csrc/distance_field.cu",
         "replaces": "waveform_ot_tpu/ops/pallas_distance.py:52",
-        "launches": sum(launches.values()), "launches_per_call": launches,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "launches_per_call": {"loc64": launches["loc64"], "ricker": launches["ricker"],
+                              "scan": launches["scan"], **per_eval},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -1,10 +1,15 @@
-"""Where the time of one loc64 value+grad call goes, on one CUDA card.
+"""Where the time of a loc/CMT workload goes, on one CUDA card.
 
-    python3 profile_loc64.py [--out FILE]
+    python3 profile_loc64.py [--workload loc64|scan|study] [--out FILE]
 
-Builds the loc64 problem of chip_smoke.py (64 stations x 3 components,
-79x61 grids, float32), warms up, then runs CALLS calls of
-``loc_cmt_value_and_grad`` under torch.profiler and prints, per call:
+Builds the workload's problem as chip_smoke.py does (float32, 79x61 grids):
+
+  loc64  one value+grad call at 64 stations x 3 components (10 calls);
+  scan   value+grad at the 1,764 scan nodes, 11 stations, one call (3 calls);
+  study  the 64-start study through minimize_multi_start, 11 stations
+         (1 call: the whole study, solver included),
+
+warms up, then runs the calls under torch.profiler and prints, per call:
 
   - the host-clock time (synchronized) and the device busy time, i.e. the
     union of the device-side intervals, with their ratio (busy share);
@@ -28,9 +33,11 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from chip_smoke import DM, build_loc64_problem
+from chip_smoke import (
+    DM, NR_STUDY, build_loc64_problem, scan_nodes, study_starts,
+)
 
-CALLS = 10
+WORKLOADS = ("loc64", "scan", "study")
 
 
 def _busy_us(intervals) -> float:
@@ -46,43 +53,62 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def workload(name: str, dev):
+    """(call, warm-up calls, profiled calls, description) of the workload."""
+    from waveform_ot_torch.inversion import (
+        InvOptions, loc_cmt_misfit, loc_cmt_value_and_grad, minimize_multi_start,
+    )
+
+    f32, opts = torch.float32, InvOptions(loc=True, cmt=False, mistype="OT")
+    if name == "loc64":
+        loc, cfg, prob = build_loc64_problem(64, f32, dev)
+        m = loc + torch.tensor(DM, dtype=f32, device=dev)
+        return (lambda: loc_cmt_value_and_grad(m, prob, opts, cfg), 5, 10,
+                "loc64 value+grad f32")
+    _, cfg, prob = build_loc64_problem(NR_STUDY, f32, dev)
+    if name == "scan":
+        nodes = scan_nodes(f32, dev)
+        return (lambda: loc_cmt_value_and_grad(nodes, prob, opts, cfg), 2, 3,
+                f"{len(nodes)}-node scan value+grad f32")
+    starts = study_starts(f32, dev)
+    fun = lambda ms: loc_cmt_misfit(ms, prob, opts, cfg)
+    return (lambda: minimize_multi_start(fun, starts, max_iter=30, tol=3e-5), 1, 1,
+            f"{len(starts)}-start study f32 (minimize_multi_start)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=WORKLOADS, default="loc64")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_loc64: torch sees no CUDA device", file=sys.stderr)
         return 1
-    from waveform_ot_torch.inversion import InvOptions, loc_cmt_value_and_grad
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    dev = torch.device("cuda", 0)
-    loc, cfg, prob = build_loc64_problem(64, torch.float32, dev)
-    m = loc + torch.tensor(DM, dtype=torch.float32, device=dev)
-    opts = InvOptions(loc=True, cmt=False, mistype="OT")
-    call = lambda: loc_cmt_value_and_grad(m, prob, opts, cfg)
-    for _ in range(5):
+    call, warm, calls, what = workload(args.workload, torch.device("cuda", 0))
+    for _ in range(warm):
         call()
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(CALLS):
+        for _ in range(calls):
             call()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
 
     events = prof.events()
     dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not dev_ev:
         raise RuntimeError("the profiler recorded no device time")
     busy_ms = _busy_us((e.time_range.start, e.time_range.end) for e in dev_ev) / 1e3
-    busy_ms /= CALLS
-    launches = sum(e.name == "cudaLaunchKernel" for e in events) / CALLS
+    busy_ms /= calls
+    launches = sum(e.name == "cudaLaunchKernel" for e in events) / calls
     by_name = collections.Counter()
     count = collections.Counter()
     for e in dev_ev:
@@ -91,13 +117,13 @@ def main() -> int:
     total_us = sum(by_name.values())
 
     print(f"[profile] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    print(f"[profile] loc64 value+grad f32, {CALLS} calls under the profiler: "
+    print(f"[profile] {what}, {calls} calls under the profiler: "
           f"{wall_ms:.4f} ms/call host clock, device busy {busy_ms:.4f} ms/call "
-          f"({100 * busy_ms / wall_ms:.1f}% busy), {len(dev_ev) / CALLS:g} device "
+          f"({100 * busy_ms / wall_ms:.1f}% busy), {len(dev_ev) / calls:g} device "
           f"ops and {launches:g} cudaLaunchKernel per call")
     for name, us in by_name.most_common(15):
-        print(f"[profile] {100 * us / total_us:5.1f}%  {us / CALLS:8.2f} us/call  "
-              f"x{count[name] / CALLS:g}  {name[:110]}")
+        print(f"[profile] {100 * us / total_us:5.1f}%  {us / calls:8.2f} us/call  "
+              f"x{count[name] / calls:g}  {name[:110]}")
     if args.out:
         with open(args.out, "w") as f:
             f.write(prof.key_averages().table(sort_by="self_device_time_total",

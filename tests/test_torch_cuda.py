@@ -67,6 +67,20 @@ def test_kernel_matches_plain_version(monkeypatch, dtype, bsz, nt, nu, ntg, spli
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_takes_a_batch_past_grid_y(dtype):
+    """70,000 traces (more than gridDim.y's 65,535) on an 8x8 grid with 6
+    samples: one launch, bit for bit equal to the plain version."""
+    args = _inputs(70_000, 6, 8, 8, dtype, seed=70)
+    before = cuda_distance.LAUNCHES
+    got = tfp.DistanceField(*cuda_distance.distance_field_cuda(*args))
+    torch.cuda.synchronize()
+    assert cuda_distance.LAUNCHES == before + 1
+    ref = tfp.distance_field_torch(*args)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("reverse", [False, True], ids=["box", "reversed_box"])
 def test_kernel_exact_tie_takes_lower_segment(monkeypatch, dtype, reverse):
     """The CPU test's box polyline (three segments, exact arithmetic): (2, -1)
@@ -147,6 +161,65 @@ def test_loc_cmt_on_card_matches_cpu():
     assert nc == 1 and nh == 0
     np.testing.assert_allclose(vc, vh, rtol=1e-10)
     np.testing.assert_allclose(gc, gh, rtol=0, atol=1e-10 * np.abs(gh).max())
+
+
+def test_batched_loc_cmt_on_card_matches_cpu():
+    """Four models at 8 stations in one call, float64, card vs CPU: one
+    kernel launch for all 96 traces; 1e-10 as in the single-model test."""
+    from chip_smoke import LOC, build_loc64_problem
+
+    res = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        _, cfg, prob = build_loc64_problem(8, torch.float64, dev)
+        ms = torch.tensor(LOC, dtype=torch.float64, device=dev) + torch.tensor(
+            [[4.0, -3.0, 2.0], [-6.0, 1.0, 3.0], [0.5, 7.0, -2.0], [9.0, 9.0, 5.0]],
+            dtype=torch.float64, device=dev)
+        before = cuda_distance.LAUNCHES
+        v, g = loc_cmt_value_and_grad(ms, prob, InvOptions(), cfg)
+        res.append((v.cpu().numpy(), g.cpu().numpy(), cuda_distance.LAUNCHES - before))
+    (vc, gc, nc), (vh, gh, nh) = res
+    assert nc == 1 and nh == 0 and vc.shape == (4,) and gc.shape == (4, 3)
+    np.testing.assert_allclose(vc, vh, rtol=1e-10)
+    for a, b in zip(gc, gh):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10 * np.abs(b).max())
+
+
+def test_batched_solver_syncs_only_on_its_loop_flags():
+    """minimize_lbfgs_batched on the card reads the device only for its two
+    loop flags: over 5 outer iterations (tol 0 keeps every lane active),
+    one read per outer check and one per line-search check, counted by
+    torch's sync debug mode; one kernel launch per batched evaluation."""
+    import warnings
+
+    from chip_smoke import LOC, build_loc64_problem
+    from waveform_ot_torch.inversion import loc_cmt_misfit, minimize_lbfgs_batched
+
+    dev = torch.device("cuda")
+    _, cfg, prob = build_loc64_problem(4, torch.float32, dev)
+    starts = torch.tensor(LOC, device=dev) + torch.tensor(
+        [[3.0, -2.0, 1.0], [-4.0, 1.0, 2.0], [1.0, 4.0, -3.0]], device=dev)
+    calls = {"value": 0, "value_grad": 0}
+
+    def fun(ms):
+        calls["value_grad" if torch.is_grad_enabled() else "value"] += 1
+        return loc_cmt_misfit(ms, prob, InvOptions(), cfg)
+
+    torch.cuda.synchronize()
+    before = cuda_distance.LAUNCHES
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = minimize_lbfgs_batched(fun, starts, max_iter=5, tol=0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    outer = calls["value_grad"] - 1
+    assert outer == 5 and res.n_iter.tolist() == [5, 5, 5]
+    # the fifth outer check is skipped (it == max_iter); each of the 5 line
+    # searches reads one flag per trial and one that ends it
+    assert len(syncs) == outer + calls["value"] + outer, syncs
+    assert cuda_distance.LAUNCHES - before == calls["value"] + calls["value_grad"]
 
 
 def test_wrapper_checks_inputs():

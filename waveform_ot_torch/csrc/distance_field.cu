@@ -54,6 +54,12 @@
 //  * The block stages its trace's segment table in shared memory, kTile
 //    segments at a time (1024 x 40 bytes of doubles, under the 48 KB static
 //    limit), so any segment count works.
+//  * One launch for any batch: the grid is one-dimensional, each trace's
+//    blocks adjacent (trace b owns blocks [b*per_trace, (b+1)*per_trace)),
+//    so the batch is bounded by gridDim.x (2^31 - 1 blocks), not by
+//    gridDim.y's 65,535. Offsets into the (B, ...) arrays are size_t; the
+//    int products stay within one trace (nu*ntg*2 and 2*nt below 2^31,
+//    checked by the wrapper).
 
 #include <cuda_runtime.h>
 
@@ -104,10 +110,13 @@ distance_field_kernel(const Args<T> a) {
   __shared__ Seg<T> s_seg[kTile];
   __shared__ T s_il[kTile];
 
-  const int b = blockIdx.y;
+  constexpr int kGroups = kThreads / S;  // point groups per block
   const int ntg = a.ntg, nu = a.nu, nseg = a.nt - 1;
   const int ngr = (ntg + P - 1) / P;  // point groups per amplitude row
-  const int g = blockIdx.x * (kThreads / S) + threadIdx.x / S;
+  const int per_trace = (nu * ngr + kGroups - 1) / kGroups;  // blocks per trace
+  const int b = static_cast<int>(blockIdx.x / per_trace);
+  const int g = static_cast<int>(blockIdx.x - static_cast<unsigned>(b) * per_trace) * kGroups
+                + threadIdx.x / S;
   const int lane = threadIdx.x % S;  // this lane's slice of the segments
   const bool active = g < nu * ngr;
   const T* vb = a.verts + static_cast<size_t>(b) * a.nt * 2;
@@ -204,10 +213,12 @@ distance_field_kernel(const Args<T> a) {
 
 template <typename T, int S>
 cudaError_t launch_s(const Args<T>& a) {
+  constexpr long long kGroups = kThreads / S;
   const long long groups = static_cast<long long>(a.nu) * ((a.ntg + P - 1) / P);
-  const dim3 grid(static_cast<unsigned>((groups * S + kThreads - 1) / kThreads),
-                  a.batch);
-  distance_field_kernel<T, S><<<grid, kThreads, 0, a.stream>>>(a);
+  const long long blocks = (groups + kGroups - 1) / kGroups * a.batch;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  distance_field_kernel<T, S>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -237,8 +248,9 @@ int launch(const void* verts, const void* tgrid, const void* ugrid, void* d,
 
 extern "C" {
 
-// Each returns cudaGetLastError() right after the launch (0 on success), or
-// cudaErrorInvalidValue for an s that is not instantiated.
+// Each returns cudaGetLastError() right after the launch (0 on success),
+// cudaErrorInvalidValue for an s that is not instantiated, or
+// cudaErrorInvalidConfiguration for a batch past gridDim.x.
 int wot_distance_field_f32(const void* verts, const void* tgrid,
                            const void* ugrid, void* d, void* iclose, void* lam,
                            void* dvec, int batch, int nt, int ntg, int nu,

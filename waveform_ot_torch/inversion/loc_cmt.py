@@ -1,10 +1,14 @@
-"""Source-location / moment-tensor objectives, batched over all traces.
+"""Source-location / moment-tensor objectives, batched over models and traces.
 
-Counterpart of waveform_ot_tpu.inversion.loc_cmt. The (nr, 3) traces are
-flattened to one batch of nr*3 in the order of the JAX module; the gradient
-w.r.t. the model is one autograd pass through forward physics, arctan
-transform, fingerprint (CUDA kernel on the card), marginal OT and the sum
-over traces.
+Counterpart of waveform_ot_tpu.inversion.loc_cmt. Every objective takes a
+batch of k models ``ms`` (k, nm) and returns (k,) misfits, where the JAX
+package vmaps a per-model function; a single model (nm,) still gives a
+scalar. The k models' (nr, 3) traces are flattened to one batch of k*nr*3
+traces, model-major and then in the JAX module's (nr, 3) order, so one
+evaluation launches the distance-field kernel once for all k models. The
+gradient is one autograd pass of the sum over lanes through forward
+physics, arctan transform, fingerprint, marginal OT and the sum over
+traces: the lanes are independent, so d(sum_j f_j)/dm_j = df_j/dm_j.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import torch
 
 from waveform_ot_torch._tree import TensorTreeModule
 from waveform_ot_torch.inversion.pipeline import (
-    Targets, TraceConfig, build_target, trace_misfit,
+    Targets, TraceConfig, as_model_batch, build_target, repeat_targets,
+    trace_misfit,
 )
 from waveform_ot_torch.inversion.windows import (
     build_windows, unit_amplitude_windows,
@@ -60,10 +65,11 @@ def _clamp_depth_straight_through(z, zmin):
     return z - (z - torch.clamp_min(z, zmin)).detach()
 
 
-def _flat_unit_windows(windows: Window, nr: int, nc: int) -> Window:
-    """(0, 1) windows with every field broadcast to the flat (nr*nc,) batch."""
+def _flat_unit_windows(windows: Window, nr: int, nc: int, k: int = 1) -> Window:
+    """(0, 1) windows with every field broadcast to the flat (k*nr*nc,)
+    batch of k models' traces."""
     win01 = unit_amplitude_windows(windows)
-    return Window(*(torch.broadcast_to(a, (nr, nc)).reshape(nr * nc)
+    return Window(*(torch.broadcast_to(a, (k, nr, nc)).reshape(k * nr * nc)
                     for a in win01))
 
 
@@ -93,70 +99,96 @@ def build_loc_cmt_problem(t, seis_obs, stations: StationSet, cfg: TraceConfig,
         fc=arr(fc, None))
 
 
-def _model_to_physics(m, prob: LocCMTProblem, opts: InvOptions):
-    """m -> (x, y, z, Mxyz) with preconditioning, depth floor and layout."""
+def _model_to_physics(ms, prob: LocCMTProblem, opts: InvOptions):
+    """Models (k, nm) -> (x, y, z (k,), Mxyz (k, 3, 3) or the fixed (3, 3))
+    with preconditioning, the depth floor per lane and the loc/cmt layout."""
     if opts.precon:
-        m = m * prob.mscal
+        ms = ms * prob.mscal
+    k = ms.shape[0]
     if opts.loc:
-        x, y, z = m[0], m[1], m[2]
+        x, y, z = ms[:, 0], ms[:, 1], ms[:, 2]
     else:
-        x, y, z = prob.mref[0], prob.mref[1], prob.mref[2]
+        x, y, z = (prob.mref[i].expand(k) for i in range(3))
     z = _clamp_depth_straight_through(z, opts.zmin)
     if opts.cmt:
-        mxyz = mxyz_from_upper(m[3:] if opts.loc else m)
+        mxyz = mxyz_from_upper(ms[:, 3:] if opts.loc else ms)
     else:
         mxyz = prob.mxyz_fixed
     return x, y, z, mxyz
 
 
-def predicted_seismograms(m, prob: LocCMTProblem, opts: InvOptions):
-    """Forward physics (nr, 3, nt) for model ``m``."""
-    x, y, z, mxyz = _model_to_physics(m, prob, opts)
+def predicted_seismograms(ms, prob: LocCMTProblem, opts: InvOptions):
+    """Forward physics: (k, nr, 3, nt) for models (k, nm), (nr, 3, nt) for
+    one model (nm,)."""
+    batch, single = as_model_batch(ms)
+    x, y, z, mxyz = _model_to_physics(batch, prob, opts)
     _, s = synthetic_seismograms(x, y, z, mxyz, prob.stations,
                                  nt=prob.t.shape[0], dt=prob.t[1] - prob.t[0],
                                  medium=prob.medium, fc=prob.fc, t0=prob.t[0])
-    return s
+    return s[0] if single else s
 
 
 def misfit_from_seis(s, prob: LocCMTProblem, opts: InvOptions,
                      cfg: TraceConfig):
-    """Scalar misfit of predicted seismograms ``s`` (nr, 3, nt)."""
+    """Misfits (k,) of predicted seismograms ``s`` (k, nr, 3, nt); a scalar
+    for one model's (nr, 3, nt)."""
+    single = s.dim() == 3
+    if single:
+        s = s[None]
     if opts.mistype == "L2":
         r = s - prob.seis_obs
-        return (r * r).sum()
-    nr, nc, nt = s.shape
+        v = (r * r).sum(dim=(-3, -2, -1))
+        return v[0] if single else v
+    k, nr, nc, nt = s.shape
     un = arctan_transform(s, prob.windows.u0[..., None],
                           prob.windows.u1[..., None])
     cfg_fp = dataclasses.replace(cfg, transform=False)
-    wt, wu = trace_misfit(prob.t, un.reshape(nr * nc, nt),
-                          _flat_unit_windows(prob.windows, nr, nc),
-                          prob.targets, cfg_fp)
+    wt, wu = trace_misfit(prob.t, un.reshape(k * nr * nc, nt),
+                          _flat_unit_windows(prob.windows, nr, nc, k),
+                          repeat_targets(prob.targets, k), cfg_fp)
+    wt = wt.reshape(k, nr * nc).sum(dim=-1)
+    wu = wu.reshape(k, nr * nc).sum(dim=-1)
     if opts.wopt == "Wt":
-        return wt.sum()
-    if opts.wopt == "Wu":
-        return wu.sum()
-    return 0.5 * (wt.sum() + wu.sum())
+        v = wt
+    elif opts.wopt == "Wu":
+        v = wu
+    else:
+        v = 0.5 * (wt + wu)
+    return v[0] if single else v
 
 
-def loc_cmt_misfit(m, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig):
-    """Scalar OT (or L2) misfit summed over all traces."""
-    s = predicted_seismograms(m, prob, opts)
+def loc_cmt_misfit(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig):
+    """OT (or L2) misfits (k,) of models ``ms`` (k, nm), each summed over
+    all traces; a scalar for one model (nm,). One distance-field launch
+    for the whole batch."""
+    s = predicted_seismograms(ms, prob, opts)
     return misfit_from_seis(s, prob, opts, cfg)
 
 
-def loc_cmt_value_and_grad(m, prob: LocCMTProblem, opts: InvOptions,
+def loc_cmt_value_and_grad(ms, prob: LocCMTProblem, opts: InvOptions,
                            cfg: TraceConfig):
-    """(misfit, d misfit / dm), the reference optfunc contract."""
-    m = m.detach().requires_grad_(True)
+    """(misfits (k,), gradients (k, nm)) of models ``ms`` (k, nm) by one
+    autograd pass of the sum over lanes; (scalar, (nm,)) for one model.
+    The reference optfunc contract, batched."""
+    ms = ms.detach().requires_grad_(True)
     with torch.enable_grad():
-        v = loc_cmt_misfit(m, prob, opts, cfg)
-        (g,) = torch.autograd.grad(v, m)
+        v = loc_cmt_misfit(ms, prob, opts, cfg)
+        (g,) = torch.autograd.grad(v.sum(), ms)
     return v.detach(), g
+
+
+def misfit_grid(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig):
+    """Misfit-surface scan: misfits (k,) at the model nodes ``ms`` (k, nm),
+    one batched evaluation (the reference's triple loop over the (z, x, y)
+    grid). For values and gradients at every node, call
+    :func:`loc_cmt_value_and_grad` on the same batch."""
+    return loc_cmt_misfit(ms, prob, opts, cfg)
 
 
 class LocCMTObjective(TensorTreeModule):
     """The loc/CMT misfit as a module: the problem's tensors are buffers, so
-    ``.to(device)`` moves the problem and ``forward(m)`` returns the misfit."""
+    ``.to(device)`` moves the problem, and ``forward(ms)`` returns the
+    misfits (k,) of a model batch (k, nm), or one model's scalar."""
 
     def __init__(self, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig):
         super().__init__(prob)

@@ -3,7 +3,8 @@
 Counterpart of waveform_ot_tpu.inversion.pipeline, batched over a leading
 trace dimension: waveforms are (B, nt), windows hold () or (B,) tensors and
 targets hold (B, n) marginals. Gradients are autograd through
-:func:`trace_misfit`.
+:func:`trace_misfit`; :func:`calc_wasser_waveform` is the reference's
+CalcWasserWaveform return contract on top of it.
 """
 
 from __future__ import annotations
@@ -51,6 +52,18 @@ class Targets(NamedTuple):
     u: Density1D
 
 
+def repeat_targets(targets: Targets, k: int) -> Targets:
+    """The observed marginals (B, n) repeated for k models: (k*B, n),
+    model-major, to pair with k models' flattened traces."""
+    rep = lambda a: a.repeat(k, *([1] * (a.dim() - 1)))
+    return Targets(*(Density1D(*(rep(a) for a in dens)) for dens in targets))
+
+
+def as_model_batch(ms):
+    """(k, nm) view of a model batch, and whether one model (nm,) was given."""
+    return (ms[None], True) if ms.dim() == 1 else (ms, False)
+
+
 def apply_transform(w, win: Window, cfg: TraceConfig):
     """Optionally arctan-squash amplitudes; the window becomes (0, 1)."""
     if not cfg.transform:
@@ -75,12 +88,53 @@ def build_target(t, w, win: Window, cfg: TraceConfig) -> Targets:
     return Targets(t=make_density_1d(ft, tg), u=make_density_1d(fu, ug))
 
 
-def trace_misfit(t, w, win: Window, targets: Targets, cfg: TraceConfig):
+def trace_misfit(t, w, win: Window, targets: Targets, cfg: TraceConfig,
+                 tshift=0.0):
     """(W_t (B,), W_u (B,)) between the fingerprint marginals of waveforms
     ``w`` (B, nt) and the precomputed targets. Differentiable w.r.t. ``w``,
-    ``t`` and the window."""
+    ``t`` and the window; the gradient w.r.t. ``tshift`` (scalar or (B,))
+    is the reference's normalized window-origin derivative."""
     pdf, (tg, ug) = build_fingerprint(t, w, win, cfg)
-    return marg_wasserstein_value(pdf, tg, ug, targets.t, targets.u, p=cfg.p)
+    return marg_wasserstein_value(pdf, tg, ug, targets.t, targets.u, p=cfg.p,
+                                  tshift=tshift)
+
+
+def dg_scale(win: Window):
+    """Normalized -> physical origin-time derivative factor,
+    1 / (tantheta (t1 - t0)) (the Ricker convention, ricker_util.py:333)."""
+    return 1.0 / ((win.t1 - win.t0) * win.tantheta)
+
+
+def calc_wasser_waveform(t, w, win: Window, targets: Targets,
+                         cfg: TraceConfig, deriv: bool = False,
+                         returnmarg: bool = True):
+    """The reference CalcWasserWaveform returns for waveforms ``w`` (B, nt),
+    each field (B,) or (B, nt):
+
+      returnmarg=True,  deriv=True:  ([Wt, Wu], [dWt/dw, dWu/dw], [dgt, dgu])
+      returnmarg=False, deriv=True:  (Wavg, dWavg/dw, dgavg)
+      deriv=False:                   [Wt, Wu] or Wavg
+
+    ``w`` is the amplitude fed to the fingerprint: with the arctan transform,
+    pass the transformed amplitudes and a (0, 1) window, as the reference
+    does. One forward, then two backward passes over it (one per marginal).
+    """
+    cfg_notr = dataclasses.replace(cfg, transform=False)
+    if not deriv:
+        wt, wu = trace_misfit(t, w, win, targets, cfg_notr)
+        return [wt, wu] if returnmarg else (wt + wu) / 2.0
+
+    w = w.detach().requires_grad_(True)
+    shift = w.new_zeros(w.shape[0], requires_grad=True)
+    with torch.enable_grad():
+        wt, wu = trace_misfit(t, w, win, targets, cfg_notr, tshift=shift)
+        drt, dgt = torch.autograd.grad(wt.sum(), (w, shift), retain_graph=True)
+        (dru,) = torch.autograd.grad(wu.sum(), w)
+    wt, wu = wt.detach(), wu.detach()
+    s = dg_scale(win)
+    if returnmarg:
+        return [wt, wu], [drt, dru], [dgt * s, torch.zeros_like(dgt)]
+    return (wt + wu) / 2.0, (drt + dru) / 2.0, dgt * s / 2.0
 
 
 def grid6_to_window(grid6, dtype=torch.float64, device="cuda"):
@@ -89,3 +143,15 @@ def grid6_to_window(grid6, dtype=torch.float64, device="cuda"):
     t0, t1, u0, u1, nu, ntg = grid6
     win = make_window(t0, t1, u0, u1, theta=45.0, dtype=dtype, device=device)
     return win, FingerprintSpec(nu=int(nu), ntg=int(ntg))
+
+
+def auto_grid6(t, wave, pad: float = 0.2, nu_factor: float = 1.3):
+    """The reference's automatic window (BuildOTobjfromWaveform norm=True,
+    ricker_util.py:233-240) of one waveform ``wave`` (nt,) on ``t``:
+    amplitude limits padded by ``pad`` of the range, time limits from ``t``,
+    Nu = int(nu_factor * nt), Ntg = nt. A host-side tuple of Python numbers."""
+    wmin, wmax = float(wave.min()), float(wave.max())
+    du = wmax - wmin
+    n = wave.shape[-1]
+    return (float(t.min()), float(t.max()), wmin - pad * du, wmax + pad * du,
+            int(nu_factor * n), n)

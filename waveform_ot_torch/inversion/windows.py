@@ -24,3 +24,9 @@ def unit_amplitude_windows(win: Window) -> Window:
     """(0, 1)-amplitude windows, for amplitudes after the arctan transform."""
     return Window(t0=win.t0, t1=win.t1, u0=torch.zeros_like(win.u0),
                   u1=torch.ones_like(win.u1), tantheta=win.tantheta)
+
+
+def default_grid_dims(nt: int, factor: float = 1.3) -> tuple[int, int]:
+    """(nu, ntg) defaults: Nu = int(1.3*nt), Ntg = nt
+    (loc_cmt_util.py:441-444; ricker_util.py:239-240)."""
+    return int(factor * nt), nt

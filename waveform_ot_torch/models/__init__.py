@@ -1,7 +1,9 @@
 """Forward models: Ricker wavelets and far-field seismograms."""
 
-from waveform_ot_torch.models.ricker import ricker, ricker_wavelet  # noqa: F401
+from waveform_ot_torch.models.ricker import (  # noqa: F401
+    ricker, ricker_wavelet, ricker_wavelet_with_jacobian,
+)
 from waveform_ot_torch.models.seismo import (  # noqa: F401
-    MediumConfig, StationSet, moment_tensor_from_sdr, mxyz_from_upper,
-    synthetic_seismograms,
+    MediumConfig, StationSet, moment_tensor_from_sdr, moment_tensor_ls,
+    mxyz_from_upper, synthetic_seismograms, upper_from_mxyz,
 )

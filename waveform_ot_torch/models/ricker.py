@@ -1,4 +1,9 @@
-"""Double-Ricker wavelet (counterpart of waveform_ot_tpu.models.ricker)."""
+"""Double-Ricker wavelet (counterpart of waveform_ot_tpu.models.ricker).
+
+Batched over a leading axis of models where the JAX package used
+``jax.vmap``: scalar (tpert, amp, f) give waveforms (nt,), parameters of
+shape (k,) give (k, nt).
+"""
 
 from __future__ import annotations
 
@@ -10,23 +15,54 @@ import torch
 from waveform_ot_torch.ops.fingerprint import linspace
 
 
-def ricker(f, length: float = 0.128, dt: float = 0.001):
-    """Single Ricker wavelet of frequency ``f`` (a tensor): (t, y)."""
+def ricker(f, length: float = 0.128, dt: float = 0.001, deriv: bool = False):
+    """Single Ricker wavelet of frequency ``f`` (a tensor, () or (k,)):
+    (t, y) and with ``deriv`` also dy/df; y has shape f.shape + t.shape."""
     t = torch.as_tensor(np.arange(-length / 2, (length - dt) / 2, dt),
                         dtype=f.dtype, device=f.device)
+    f = f[..., None]
     pift2 = (math.pi ** 2) * (t ** 2)
     a = 1.0 - 2.0 * pift2 * f ** 2
     b = torch.exp(-pift2 * f ** 2)
-    return t, a * b
+    y = a * b
+    if deriv:
+        dw = b * (-4.0 * pift2 * f) + a * (-2.0 * pift2 * f * b)
+        return t, y, dw
+    return t, y
+
+
+def _time_axis(trange, n: int, like: torch.Tensor) -> torch.Tensor:
+    """jnp.linspace(trange[0], trange[1], n) on the device of ``like``."""
+    lo = torch.tensor(trange[0], dtype=like.dtype, device=like.device)
+    hi = torch.tensor(trange[1], dtype=like.dtype, device=like.device)
+    return linspace(lo, hi, n)
 
 
 def ricker_wavelet(tpert, amp, f, trange=(-2.0, 2.0), length: float = 4.0,
                    dt: float = 4.0 / 128.0):
     """Double Ricker wavelet (t, w), differentiable in the tensors
-    (tpert, amp, f): t = linspace(trange) + tpert."""
+    (tpert, amp, f), each () or (k,): t = linspace(trange) + tpert."""
     freq = f * 25.0 * 4.0 / 128.0
     _, w = ricker(freq, length=length, dt=dt)
-    wp = amp * torch.cat([w, w])
-    lo = torch.tensor(trange[0], dtype=wp.dtype, device=wp.device)
-    hi = torch.tensor(trange[1], dtype=wp.dtype, device=wp.device)
-    return linspace(lo, hi, wp.shape[0]) + tpert, wp
+    wp = amp[..., None] * torch.cat([w, w], dim=-1)
+    return _time_axis(trange, wp.shape[-1], wp) + tpert[..., None], wp
+
+
+def ricker_wavelet_with_jacobian(tpert, amp, f, trange=(-2.0, 2.0),
+                                 length: float = 4.0, dt: float = 4.0 / 128.0):
+    """(t, w, dw/dm (3, nt)) for scalar (tpert, amp, f) with the reference's
+    analytic jacobian conventions (ricker_util.py:82-87): row 0 is
+    -gradient(w)/dt (the time offset, by central differences and one-sided
+    ones at the ends, as np.gradient), row 1 w/amp, row 2
+    amp * d(ricker)/df * 25*4/128."""
+    freq = f * 25.0 * 4.0 / 128.0
+    _, w, dwf = ricker(freq, length=length, dt=dt, deriv=True)
+    ww = torch.cat([w, w])
+    wp = amp * ww
+    tp = _time_axis(trange, wp.shape[0], wp)
+    h = tp[1] - tp[0]
+    grad = torch.cat([(wp[1:2] - wp[0:1]) / h,
+                      (wp[2:] - wp[:-2]) * 0.5 / h,
+                      (wp[-1:] - wp[-2:-1]) / h])
+    dwpd = torch.stack([-grad, ww, amp * torch.cat([dwf, dwf]) * 25.0 * 4.0 / 128.0])
+    return tp + tpert, wp, dwpd

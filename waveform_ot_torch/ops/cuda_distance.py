@@ -38,8 +38,9 @@ LAUNCHES = 0
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SYMBOLS = {torch.float32: "wot_distance_field_f32",
             torch.float64: "wot_distance_field_f64"}
-_MAX_BATCH = 65535  # gridDim.y
+THREADS = 128        # threads per block, fixed in the kernel
 POINTS = 4           # grid points per thread, fixed in the kernel
+MAX_BLOCKS = 2 ** 31 - 1  # gridDim.x, which holds every trace's blocks
 MAX_S = 32           # lanes per point group: one warp
 LANES_PER_SM = 512
 """Below this many lanes per SM a split still pays: Ricker's 10,240 groups
@@ -114,14 +115,17 @@ def distance_field_cuda(verts, tgrid, ugrid):
     _check("verts", verts, dt, dev, (bsz, nt, 2))
     _check("tgrid", tgrid, dt, dev, (bsz, ntg))
     _check("ugrid", ugrid, dt, dev, (bsz, nu))
-    if not 0 < bsz <= _MAX_BATCH or nu * ntg == 0:
-        raise ValueError(f"batch {bsz} must be in [1, {_MAX_BATCH}] and the grid "
-                         f"({nu}, {ntg}) non-empty")
-    if nu * ntg * 2 >= 2 ** 31 or nt >= 2 ** 31:
-        raise ValueError("grid or polyline too large for int32 indexing")
+    if bsz == 0 or nu * ntg == 0:
+        raise ValueError(f"batch {bsz} and grid ({nu}, {ntg}) must be non-empty")
+    if nu * ntg * 2 >= 2 ** 31 or 2 * nt >= 2 ** 31:
+        raise ValueError("one trace's grid or polyline is too large for int32 indexing")
 
     lib = _library()
     s = plan(bsz, nu, ntg, nt - 1, _sm_count(dev.index))
+    groups = nu * -(-ntg // POINTS)                  # point groups per trace
+    blocks = bsz * -(-groups // (THREADS // s))
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"{bsz} traces need {blocks} blocks, more than one launch holds")
     d = torch.empty(bsz, nu, ntg, dtype=dt, device=dev)
     iclose = torch.empty(bsz, nu, ntg, dtype=torch.int32, device=dev)
     lam = torch.empty(bsz, nu, ntg, dtype=dt, device=dev)
