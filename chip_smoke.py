@@ -39,7 +39,26 @@ is non-zero:
   8. inversion  the Ricker scipy L-BFGS-B inversion in float64 on the card,
                 recorded by an InversionTrace: within 0.02 of the truth and
                 within 1e-6 of the same inversion on the CPU, in as many
-                iterations.
+                iterations;
+  9. layered    the bench's Figs 9-11 physics (build_layered_problem): W2
+                misfit + gradient through the six-layer Fukuoka f-k forward,
+                11 stations x 3 components, nk 512, float32 on the card,
+                through exactly one kernel launch, against float64 on the CPU
+                (seismograms within 1e-4 of the peak, value within 1e-3,
+                gradient direction cosine > 0.97 and norm ratio in (0.5, 2)),
+                and float64 on the card against float64 on the CPU; host-clock
+                median of 20 calls;
+ 10. layered_scan  values and (x, y, z) gradients at the 21x21x4 = 1,764
+                scan nodes through the layered physics in one call
+                (layered_misfit_grid) and one kernel launch; one node per
+                depth slice against loc_cmt_value_and_grad of the layered
+                forward at that node (f32), and a 4 x 3 sub-grid in f64
+                against its nodes alone; time (median of 3), peak memory;
+ 11. layered_ms the Fig 12 study through the layered physics: 64 starts,
+                minimize_lbfgs_batched_host(max_iter 25, tol 1e-4, ls_max 8),
+                unchunked; at least 75% of starts within 1 km of the source,
+                one kernel launch per batched evaluation; time, iterations,
+                evaluations, launches, the share converged, the worst error.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -79,6 +98,23 @@ PLAIN_ONCE = {"scan"}
 NR_STUDY = 11                    # stations of the bench's scan and multistart
 N_STARTS = 64
 STUDY_RADIUS_KM = 0.1            # every start must end this close to LOC
+LAYERED_NK, LAYERED_KMAX = 512, 2.0
+SEIS_TOL_F32 = 1e-4              # layered f32 on the card vs f64 on the CPU, of the peak
+LAYERED_VALUE_RTOL_F32 = 1e-3
+GRAD_COS_F32 = 0.97              # the JAX package's f32 gradient contract
+# Float64 on the card vs float64 on the CPU. On the omega = 0 lane the stack
+# algebra cancels digits (tests/test_torch_layered.py): both packages carry
+# ~6e-8 relative error there at a 12 km source, and another order of rounding
+# (the card's FMA, exp and division) moves the result by as much: measured
+# 1.6e-8 (seismograms), 4.4e-8 (value), 1.3e-7 (gradient) at LOC + DM.
+SEIS_TOL_F64 = VALUE_RTOL_F64 = GRAD_TOL_F64 = 1e-6
+# a scan node against the same node alone: f32 (the f32 noise of two orders of
+# summation; gradients at the f32 bar of every other check), and f64 on a
+# 4 x 3 sub-grid, where only the order of the sums differs
+SCAN_VALUE_RTOL_F32, SCAN_GRAD_TOL_F32 = 1e-5, GRAD_TOL_F32
+SCAN_TOL_F64 = 1e-10
+LAYERED_MS_RADIUS_KM = 1.0
+LAYERED_MS_SHARE = 0.75          # the bench's bar: this share of starts within 1 km
 STUDY_TIMED = 3                  # study and scan timings: median of 3
 SCAN_CHECKED = 8                 # scan nodes held against float64 on the CPU
 RICKER_TRUTH = (0.0, 1.6, 1.0)
@@ -122,6 +158,46 @@ def build_loc64_problem(nr: int, dtype, device):
     obs = s + 0.002 * float(s.abs().max()) * arr(rng.standard_normal(tuple(s.shape)))
     cfg = TraceConfig(nu=79, ntg=NT, lambdav=0.04, q=None, p=2)
     return loc, cfg, build_loc_cmt_problem(t, obs, stations, cfg, mxyz_fixed=mxyz)
+
+
+def build_layered_problem(dtype, device):
+    """The bench's Figs 9-11 problem (``bench._build_layered_problem``) in the
+    port: the six-layer Fukuoka model, NR_STUDY stations on a 60 km circle,
+    nt 61, dt 1, nk 512, kmax 2.0, source at LOC with strike/dip/rake
+    30/60/45 and M0 5e6, observed data from the layered forward plus
+    0.002*max|s| noise from numpy default_rng(0), 79x61 grids, lambda 0.04,
+    W2. Returns (loc, cfg, prob, forward, stages)."""
+    from waveform_ot_torch.inversion import TraceConfig, build_loc_cmt_problem
+    from waveform_ot_torch.models import (
+        StationSet, fukuoka_model, make_layered_forward, make_layered_stages,
+        moment_tensor_from_sdr,
+    )
+
+    arr = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    ang = np.linspace(0, 2 * np.pi, NR_STUDY, endpoint=False)
+    stations = StationSet(x=arr(60.0 * np.cos(ang)), y=arr(60.0 * np.sin(ang)))
+    mxyz = moment_tensor_from_sdr(30.0, 60.0, 45.0, m0=5.0e6, device=device).to(dtype)
+    kw = dict(model=fukuoka_model(device=device), nt=NT, dt=1.0, nk=LAYERED_NK,
+              kmax=LAYERED_KMAX)
+    forward = make_layered_forward(stations, **kw)
+    loc = arr(LOC)
+    with torch.no_grad():
+        s = forward(loc[0], loc[1], loc[2], mxyz)
+    rng = np.random.default_rng(0)
+    obs = s + 0.002 * float(s.abs().max()) * arr(rng.standard_normal(tuple(s.shape)))
+    cfg = TraceConfig(nu=79, ntg=NT, lambdav=0.04, q=None, p=2)
+    prob = build_loc_cmt_problem(torch.arange(NT, dtype=dtype, device=device), obs,
+                                 stations, cfg, mxyz_fixed=mxyz)
+    return loc, cfg, prob, forward, make_layered_stages(**kw)
+
+
+def scan_axes(dtype, device):
+    """The bench's layered scan grid: depths linspace(4, 22, 4) (4,) and the
+    (x, y) nodes of linspace(-20, 20, 21) squared, (441, 2), x-major."""
+    xg = np.linspace(-20, 20, 21)
+    x, y = np.meshgrid(xg, xg, indexing="ij")
+    arr = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return arr(np.linspace(4, 22, 4)), arr(np.stack([x.ravel(), y.ravel()], 1))
 
 
 def build_ricker_problem(golden: dict, dtype, device):
@@ -195,16 +271,17 @@ def _field_inputs(t, w, win, spec):
             ug.expand(bsz, spec.nu).contiguous())
 
 
-def loc_field_inputs(ms, prob, cfg):
+def loc_field_inputs(ms, prob, cfg, forward=None):
     """The distance-field inputs of one loc/CMT evaluation of the models
-    ``ms`` (k, 3): k*nr*3 traces, as misfit_from_seis forms them."""
+    ``ms`` (k, 3) through ``forward`` (the far-field default or the layered
+    physics): k*nr*3 traces, as misfit_from_seis forms them."""
     from waveform_ot_torch.inversion import InvOptions
     from waveform_ot_torch.inversion.loc_cmt import (
         _flat_unit_windows, predicted_seismograms,
     )
     from waveform_ot_torch.ops import arctan_transform
 
-    s = predicted_seismograms(ms, prob, InvOptions())
+    s = predicted_seismograms(ms, prob, InvOptions(), forward=forward)
     k, nr, nc, nt = s.shape
     un = arctan_transform(s, prob.windows.u0[..., None], prob.windows.u1[..., None])
     return _field_inputs(prob.t, un.reshape(k * nr * nc, nt),
@@ -224,6 +301,9 @@ def main_path_shapes(dtype, device, golden):
         _, cfg11, prob11 = build_loc64_problem(NR_STUDY, dtype, device)
         multistart = loc_field_inputs(study_starts(dtype, device), prob11, cfg11)
         scan = loc_field_inputs(scan_nodes(dtype, device), prob11, cfg11)
+        lloc, lcfg, lprob, lfwd, _ = build_layered_problem(dtype, device)
+        layered = loc_field_inputs((lloc + torch.tensor(DM, dtype=dtype, device=device))[None],
+                                   lprob, lcfg, forward=lfwd)
 
         rprob, rcfg = build_ricker_problem(golden, dtype, device)
         m = torch.tensor([0.5, 1.2, 1.1], dtype=dtype, device=device)
@@ -240,7 +320,7 @@ def main_path_shapes(dtype, device, golden):
         bigfp = _field_inputs(tb.to(device, dtype), wb.to(device, dtype)[None], bwin,
                               FingerprintSpec(nu=800, ntg=600))
     return {"loc64": loc64, "ricker": ricker, "bigfp": bigfp,
-            "multistart": multistart, "scan": scan}
+            "multistart": multistart, "scan": scan, "layered": layered}
 
 
 def compare_fields(got, ref, tol: float) -> dict:
@@ -356,6 +436,154 @@ def host_median_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|, both moved to float64 on the CPU."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
+    """Phases 9-11: the layered physics on the card. Returns the kernel
+    launches of each path; ``per_eval`` gains the study's per evaluation."""
+    from waveform_ot_torch.inversion import (
+        layered_misfit_grid, loc_cmt_misfit, loc_cmt_value_and_grad,
+        minimize_lbfgs_batched_host,
+    )
+    from waveform_ot_torch.ops import cuda_distance
+
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+    launches = {}
+    dm = torch.tensor(DM)
+    # 9. value and gradient at LOC + DM
+    loc, cfg, prob32, fwd32, stages32 = build_layered_problem(f32, dev)
+    m32 = loc + dm.to(dev, f32)
+    torch.cuda.synchronize()
+    cuda_distance.LAUNCHES = 0
+    v32, g32 = loc_cmt_value_and_grad(m32, prob32, opts, cfg, forward=fwd32)
+    torch.cuda.synchronize()
+    launches["layered"] = cuda_distance.LAUNCHES
+    if launches["layered"] != 1:
+        raise AssertionError(f"layered value+grad launched the kernel "
+                             f"{launches['layered']} times, not once")
+    if not (bool(torch.isfinite(v32)) and bool(torch.isfinite(g32).all())):
+        raise AssertionError(f"non-finite layered result {v32} {g32}")
+    res, built = {}, {}
+    for where, device in (("cpu", cpu), ("card", dev)):
+        locd, cfgd, probd, fwdd, stagesd = built[where] = build_layered_problem(f64, device)
+        md = locd + dm.to(device, f64)
+        with torch.no_grad():
+            sd = fwdd(md[0], md[1], md[2], probd.mxyz_fixed)
+        res[where] = (sd, *loc_cmt_value_and_grad(md, probd, opts, cfgd, forward=fwdd))
+    s64, v64, g64 = res["cpu"]
+    with torch.no_grad():
+        s32 = fwd32(m32[0], m32[1], m32[2], prob32.mxyz_fixed)
+    g32c, g64c = g32.double().cpu(), g64.cpu()
+    dev_f32 = {"seis": _rel(s32, s64), "value": abs(v32.item() - v64.item()) / abs(v64.item()),
+               "cos": (g32c @ g64c / (g32c.norm() * g64c.norm())).item(),
+               "norm_ratio": (g32c.norm() / g64c.norm()).item()}
+    s64d, v64d, g64d = res["card"]
+    dev_f64 = {"seis": _rel(s64d, s64), "value": abs(v64d.item() - v64.item()) / abs(v64.item()),
+               "grad": _rel(g64d, g64)}
+    print(f"[layered] f32 on {torch.cuda.get_device_name(0)}: value {v32.item()!r} grad "
+          f"{g32.tolist()}, kernel launches {launches['layered']}; f64 on cpu: value "
+          f"{v64.item()!r} grad {g64.tolist()}")
+    print(f"[layered] f32-card vs f64-cpu: seismograms {dev_f32['seis']:.3e} of the peak "
+          f"(bound {SEIS_TOL_F32:g}), value rel {dev_f32['value']:.3e} (bound "
+          f"{LAYERED_VALUE_RTOL_F32:g}), gradient cosine {dev_f32['cos']:.6f} (bound > "
+          f"{GRAD_COS_F32}), norm ratio {dev_f32['norm_ratio']:.6f} (bound (0.5, 2))")
+    print(f"[layered] f64-card vs f64-cpu: seismograms {dev_f64['seis']:.3e} of the peak "
+          f"(bound {SEIS_TOL_F64:g}), value rel {dev_f64['value']:.3e} (bound "
+          f"{VALUE_RTOL_F64:g}), gradient {dev_f64['grad']:.3e} of max|g| (bound "
+          f"{GRAD_TOL_F64:g})")
+    if (dev_f32["seis"] > SEIS_TOL_F32 or dev_f32["value"] > LAYERED_VALUE_RTOL_F32
+            or dev_f32["cos"] <= GRAD_COS_F32 or not 0.5 < dev_f32["norm_ratio"] < 2.0):
+        raise AssertionError("layered f32 on the card deviates from f64 on the CPU")
+    if (dev_f64["seis"] > SEIS_TOL_F64 or dev_f64["value"] > VALUE_RTOL_F64
+            or dev_f64["grad"] > GRAD_TOL_F64):
+        raise AssertionError("layered f64 on the card deviates from f64 on the CPU")
+    ms_call = host_median_ms(lambda: loc_cmt_value_and_grad(m32, prob32, opts, cfg,
+                                                            forward=fwd32))
+    print(f"[timing] layered value+grad f32: {ms_call:.4f} ms/call (host clock, "
+          f"synchronized, median of {N_TIMED}) {card}")
+
+    # 10. the depth-amortized scan
+    zs, xy = scan_axes(f32, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda_distance.LAUNCHES = 0
+    sv, sg = layered_misfit_grid(zs, xy, prob32, opts, cfg, stages32)
+    torch.cuda.synchronize()
+    launches["layered_scan"] = cuda_distance.LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches["layered_scan"] != 1:
+        raise AssertionError(f"the layered scan launched the kernel "
+                             f"{launches['layered_scan']} times, not once")
+    if sv.shape != (4, len(xy)) or sg.shape != (4, len(xy), 3) or not (
+            bool(torch.isfinite(sv).all()) and bool(torch.isfinite(sg).all())):
+        raise AssertionError(f"layered scan result of shapes {sv.shape} {sg.shape} "
+                             f"is not finite")
+    scan_ms = host_median_ms(lambda: layered_misfit_grid(zs, xy, prob32, opts, cfg, stages32),
+                             n=STUDY_TIMED, warm=0)
+    print(f"[layered_scan] {sv.numel()} nodes x {NR_STUDY} stations x 3 = {3 * NR_STUDY * sv.numel()} "
+          f"traces, f32, values and gradients in one call: {scan_ms:.4f} ms per scan (host "
+          f"clock, synchronized, median of {STUDY_TIMED}); kernel launches "
+          f"{launches['layered_scan']}; peak device memory {peak_gb:.3f} GB {card}")
+    pick = np.random.default_rng(11).integers(0, len(xy), size=4)
+    worst_v = worst_g = 0.0
+    for iz, ixy in enumerate(pick):
+        node = torch.stack([xy[ixy, 0], xy[ixy, 1], zs[iz]])
+        v1, g1 = loc_cmt_value_and_grad(node, prob32, opts, cfg, forward=fwd32)
+        worst_v = max(worst_v, abs(sv[iz, ixy].item() - v1.item()) / abs(v1.item()))
+        worst_g = max(worst_g, _rel(sg[iz, ixy], g1))
+    _, cfgd, probd, fwdd, stagesd = built["card"]
+    sub = xy[::147].double()
+    v64, g64 = layered_misfit_grid(zs.double(), sub, probd, opts, cfgd, stagesd)
+    nodes = torch.cat([torch.cat([sub, z.expand(len(sub), 1)], 1) for z in zs.double()[:, None]])
+    v1, g1 = loc_cmt_value_and_grad(nodes, probd, opts, cfgd, forward=fwdd)
+    dev64 = max((v64.reshape(-1) - v1).abs().max().item() / v1.abs().max().item(),
+                _rel(g64.reshape(-1, 3), g1))
+    print(f"[layered_scan] f32 nodes {pick.tolist()} (one per depth) vs the node alone: value "
+          f"rel dev max {worst_v:.3e} (bound {SCAN_VALUE_RTOL_F32:g}), grad dev / max|g| max "
+          f"{worst_g:.3e} (bound {SCAN_GRAD_TOL_F32:g}); f64 {v64.numel()}-node sub-grid vs "
+          f"its nodes alone: {dev64:.3e} (bound {SCAN_TOL_F64:g})")
+    if worst_v > SCAN_VALUE_RTOL_F32 or worst_g > SCAN_GRAD_TOL_F32 or dev64 > SCAN_TOL_F64:
+        raise AssertionError("layered scan nodes deviate from the same nodes alone")
+    del sv, sg
+    torch.cuda.empty_cache()
+
+    # 11. the 64-start study through the layered physics
+    starts = study_starts(f32, dev)
+    misfit = lambda ms: loc_cmt_misfit(ms, prob32, opts, cfg, forward=fwd32)
+    solve = lambda f: minimize_lbfgs_batched_host(f, starts, max_iter=25, tol=1e-4, ls_max=8)
+    fun = CountedObjective(misfit)
+    torch.cuda.synchronize()
+    cuda_distance.LAUNCHES = 0
+    res = solve(fun)
+    torch.cuda.synchronize()
+    launches["layered_ms"] = cuda_distance.LAUNCHES
+    evals = fun.values + fun.value_grads
+    per_eval["layered_ms"] = launches["layered_ms"] / evals
+    err = torch.linalg.vector_norm(res.x.double() - torch.tensor(LOC, dtype=f64, device=dev),
+                                   dim=1)
+    share = (err < LAYERED_MS_RADIUS_KM).double().mean().item()
+    study_ms = host_median_ms(lambda: solve(misfit), n=STUDY_TIMED, warm=0)
+    print(f"[layered_ms] {N_STARTS} starts, {NR_STUDY} stations, f32: {study_ms:.4f} ms per "
+          f"study (host clock, synchronized, median of {STUDY_TIMED}); outer iterations "
+          f"{fun.value_grads - 1}, line-search trials {fun.values}, batched evaluations "
+          f"{evals}, kernel launches {launches['layered_ms']}; ls_failed lanes "
+          f"{int(res.ls_failed.sum())}; within {LAYERED_MS_RADIUS_KM:g} km: {share:.4f} "
+          f"(bound {LAYERED_MS_SHARE:g}); distance to the source max {err.max().item():.6f} "
+          f"km, median {err.median().item():.6f} km {card}")
+    if launches["layered_ms"] != evals:
+        raise AssertionError(f"layered_ms: {launches['layered_ms']} kernel launches for "
+                             f"{evals} batched evaluations")
+    if not (share >= LAYERED_MS_SHARE and bool(torch.isfinite(err).all())):
+        raise AssertionError(f"layered_ms: only {share:.0%} of starts within "
+                             f"{LAYERED_MS_RADIUS_KM:g} km: {err.tolist()}")
+    return launches
 
 
 def main() -> int:
@@ -609,6 +837,9 @@ def main() -> int:
     if x_err > RICKER_X_TOL or inv["card"].nit != inv["cpu"].nit:
         raise AssertionError("the Ricker inversion on the card parts from the CPU one")
 
+    # 9-11. the layered f-k physics
+    launches.update(layered_phases(dev, opts, card, per_eval))
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -616,7 +847,8 @@ def main() -> int:
         "replaces": "waveform_ot_tpu/ops/pallas_distance.py:52",
         "launches": sum(launches.values()), "launches_by_path": launches,
         "launches_per_call": {"loc64": launches["loc64"], "ricker": launches["ricker"],
-                              "scan": launches["scan"], **per_eval},
+                              "scan": launches["scan"], "layered": launches["layered"],
+                              "layered_scan": launches["layered_scan"], **per_eval},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

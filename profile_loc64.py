@@ -1,13 +1,18 @@
 """Where the time of a loc/CMT workload goes, on one CUDA card.
 
-    python3 profile_loc64.py [--workload loc64|scan|study] [--out FILE]
+    python3 profile_loc64.py [--workload W] [--out FILE]
 
 Builds the workload's problem as chip_smoke.py does (float32, 79x61 grids):
 
-  loc64  one value+grad call at 64 stations x 3 components (10 calls);
-  scan   value+grad at the 1,764 scan nodes, 11 stations, one call (3 calls);
-  study  the 64-start study through minimize_multi_start, 11 stations
-         (1 call: the whole study, solver included),
+  loc64         one value+grad call at 64 stations x 3 components (10 calls);
+  scan          value+grad at the 1,764 scan nodes, 11 stations (3 calls);
+  study         the 64-start study through minimize_multi_start, 11 stations
+                (1 call: the whole study, solver included);
+  layered       one value+grad through the six-layer layered physics, 11
+                stations, nk 512 (10 calls);
+  layered_scan  layered_misfit_grid at the 1,764 scan nodes (3 calls);
+  layered_ms    the 64-start study through minimize_lbfgs_batched_host and
+                the layered physics (1 call),
 
 warms up, then runs the calls under torch.profiler and prints, per call:
 
@@ -18,6 +23,14 @@ warms up, then runs the calls under torch.profiler and prints, per call:
   - the device operations with the most time, each with its share of the
     busy time.
 
+For the layered workloads it then profiles one evaluation split into its
+stages, with a synchronisation between them, and prints each stage's share
+of the device busy time and its host-clock time: stage A (the surface
+operators and their depth tangent), stage B (response, Bessel assembly, synthesis), the misfit
+(fingerprint, distance-field kernel, 1-D OT) and the backward pass, with the
+kernel's own share; at layered_ms the evaluation is one value+grad of all 64
+starts.
+
 ``--out`` also writes the profiler's full table there. Without a CUDA card
 it exits non-zero.
 """
@@ -26,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import subprocess
 import sys
 import time
@@ -34,10 +48,12 @@ import torch
 from torch.autograd import DeviceType
 
 from chip_smoke import (
-    DM, NR_STUDY, build_loc64_problem, scan_nodes, study_starts,
+    DM, NR_STUDY, build_layered_problem, build_loc64_problem, scan_axes, scan_nodes,
+    study_starts,
 )
 
-WORKLOADS = ("loc64", "scan", "study")
+WORKLOADS = ("loc64", "scan", "study", "layered", "layered_scan", "layered_ms")
+KERNEL = "distance_field_kernel"
 
 
 def _busy_us(intervals) -> float:
@@ -53,12 +69,93 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def layered_workload(name: str, dev):
+    """(call, warm-up calls, profiled calls, description, the sources (x, y,
+    z) of one evaluation grouped per operator) of a layered workload."""
+    from waveform_ot_torch.inversion import (
+        InvOptions, layered_misfit_grid, loc_cmt_misfit, loc_cmt_value_and_grad,
+        minimize_lbfgs_batched_host,
+    )
+
+    f32, opts = torch.float32, InvOptions()
+    loc, cfg, prob, fwd, stages = build_layered_problem(f32, dev)
+    if name == "layered":
+        m = loc + torch.tensor(DM, dtype=f32, device=dev)
+        return (lambda: loc_cmt_value_and_grad(m, prob, opts, cfg, forward=fwd), 5, 10,
+                "layered value+grad f32", (m[0:1], m[1:2], m[2:3]))
+    if name == "layered_scan":
+        zs, xy = scan_axes(f32, dev)
+        n = (len(zs), len(xy))
+        return (lambda: layered_misfit_grid(zs, xy, prob, opts, cfg, stages), 2, 3,
+                f"{len(zs) * len(xy)}-node layered scan f32",
+                (xy[:, 0].expand(n), xy[:, 1].expand(n), zs[:, None].expand(n)))
+    starts = study_starts(f32, dev)
+    fun = lambda ms: loc_cmt_misfit(ms, prob, opts, cfg, forward=fwd)
+    return (lambda: minimize_lbfgs_batched_host(fun, starts, max_iter=25, tol=1e-4, ls_max=8),
+            1, 1, f"{len(starts)}-start layered study f32 (minimize_lbfgs_batched_host)",
+            (starts[:, 0], starts[:, 1], starts[:, 2]))
+
+
+def stage_breakdown(dev, sources, smi: str):
+    """Profile one layered evaluation in stages, synchronised between them,
+    and print each stage's share of the device busy time."""
+    from waveform_ot_torch.inversion import InvOptions, misfit_from_seis
+    from waveform_ot_torch.models.layered import _moment_coeffs
+
+    _, cfg, prob, _, (stage_a, stage_b) = build_layered_problem(torch.float32, dev)
+    x, y, z = (v.detach().clone().requires_grad_(True) for v in sources)
+    a = _moment_coeffs(prob.mxyz_fixed)
+    zg = z if z.dim() == 1 else z[:, 0]
+
+    labels = ("stage A (operators + depth tangent)",
+              "stage B (response, Bessel assembly, synthesis)",
+              "misfit (fingerprint, kernel, 1-D OT)", "backward (misfit and stage B)")
+
+    def run(record):
+        with record(labels[0]):
+            ops, dops = stage_a(zg.detach(), tangent=True)
+            torch.cuda.synchronize()
+        with record(labels[1]):
+            s = stage_b(ops, x, y, z, a, prob.stations, dops)
+            torch.cuda.synchronize()
+        with record(labels[2]):
+            v = misfit_from_seis(s.reshape((-1,) + s.shape[-3:]), prob, InvOptions(), cfg)
+            torch.cuda.synchronize()
+        with record(labels[3]):
+            torch.autograd.grad(v.sum(), (x, y, z))
+            torch.cuda.synchronize()
+
+    for _ in range(2):
+        run(lambda name: contextlib.nullcontext())
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(torch.profiler.record_function)
+    events = prof.events()
+    # a range also appears on the device as one span over its kernels: leave it out
+    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in labels]
+    ranges = [e for e in events if e.device_type == DeviceType.CPU and e.name in labels]
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev_ev)
+    print(f"[stages] {smi}; one evaluation, {x.numel()} sources, synchronised between "
+          f"stages: device busy {busy / 1e3:.4f} ms")
+    for r in sorted(ranges, key=lambda e: e.time_range.start):
+        inside = [e for e in dev_ev if r.time_range.start <= e.time_range.start
+                  < r.time_range.end]
+        us = _busy_us((e.time_range.start, e.time_range.end) for e in inside)
+        kern = sum(e.time_range.elapsed_us() for e in inside if KERNEL in e.name)
+        print(f"[stages] {100 * us / busy:5.1f}%  {us / 1e3:9.4f} ms device busy, "
+              f"{r.time_range.elapsed_us() / 1e3:9.4f} ms host clock, {len(inside):6d} device "
+              f"ops  {r.name}" + (f"; distance-field kernel {kern / 1e3:.4f} ms "
+                                  f"({100 * kern / busy:.1f}%)" if kern else ""))
+
+
 def workload(name: str, dev):
     """(call, warm-up calls, profiled calls, description) of the workload."""
     from waveform_ot_torch.inversion import (
         InvOptions, loc_cmt_misfit, loc_cmt_value_and_grad, minimize_multi_start,
     )
 
+    if name.startswith("layered"):
+        return layered_workload(name, dev)[:4]
     f32, opts = torch.float32, InvOptions(loc=True, cmt=False, mistype="OT")
     if name == "loc64":
         loc, cfg, prob = build_loc64_problem(64, f32, dev)
@@ -124,6 +221,9 @@ def main() -> int:
     for name, us in by_name.most_common(15):
         print(f"[profile] {100 * us / total_us:5.1f}%  {us / calls:8.2f} us/call  "
               f"x{count[name] / calls:g}  {name[:110]}")
+    if args.workload.startswith("layered"):
+        stage_breakdown(torch.device("cuda", 0),
+                        layered_workload(args.workload, torch.device("cuda", 0))[4], smi)
     if args.out:
         with open(args.out, "w") as f:
             f.write(prof.key_averages().table(sort_by="self_device_time_total",

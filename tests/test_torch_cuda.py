@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernel against its plain PyTorch version, and the paths
+that launch it, on the card.
 
 Every test here needs a CUDA card and nvcc and skips without them. The file
 imports no JAX, so it also runs where only PyTorch is installed:
@@ -234,3 +235,129 @@ def test_wrapper_checks_inputs():
         cuda_distance.distance_field_cuda(v, torch.zeros(2, 4, device=dev), g)
     with pytest.raises(TypeError):
         cuda_distance.distance_field_cuda(v.half(), g.half(), g.half())
+
+
+# -- the layered f-k physics ------------------------------------------------
+# Card against CPU, float64: the stack algebra cancels digits where the
+# synthesis frequency nears 0 (tests/test_torch_layered.py), so the card's
+# other order of rounding (FMA, its exp and division) moves the seismograms
+# by ~4e-8 of the peak at the production damping 0.023 and by ~7e-9 at 0.1,
+# where these tests hold them (bars 1e-7).
+LAYERED_ALPHA = 0.1
+LAYERED_CARD_TOL = 1e-7
+
+
+def _layered_setup(dev, dtype):
+    """Three stations on a 60 km circle, the Fukuoka model, nt 33, nk 32:
+    (forward, stages, cfg, problem with data from the forward at LOC)."""
+    from chip_smoke import LOC
+    from waveform_ot_torch.inversion import TraceConfig, build_loc_cmt_problem
+    from waveform_ot_torch.models import (
+        StationSet, fukuoka_model, make_layered_forward, make_layered_stages,
+        moment_tensor_from_sdr,
+    )
+
+    ang = np.linspace(0, 2 * np.pi, 3, endpoint=False)
+    arr = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    st = StationSet(x=arr(60.0 * np.cos(ang)), y=arr(60.0 * np.sin(ang)))
+    mxyz = moment_tensor_from_sdr(30.0, 60.0, 45.0, m0=5.0e6, device=dev).to(dtype)
+    kw = dict(model=fukuoka_model(device=dev), nt=33, dt=1.0, nk=32, kmax=1.5,
+              alpha_damp=LAYERED_ALPHA)
+    fwd = make_layered_forward(st, **kw)
+    with torch.no_grad():
+        obs = fwd(*arr(LOC), mxyz)
+    cfg = TraceConfig(nu=15, ntg=33, lambdav=0.04, q=None, p=2)
+    prob = build_loc_cmt_problem(arr(np.arange(33.0)), obs, st, cfg, mxyz_fixed=mxyz)
+    return fwd, make_layered_stages(**kw), cfg, prob
+
+
+def test_layered_f64_on_card_matches_cpu():
+    """Seismograms of three sources and the layered misfit's value and
+    gradient at them, float64, card vs CPU: within LAYERED_CARD_TOL (of the
+    peak, relative, of max |g|); one kernel launch on the card, none on the
+    CPU."""
+    from chip_smoke import LOC
+
+    res = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        fwd, _, cfg, prob = _layered_setup(dev, torch.float64)
+        ms = torch.tensor(LOC, dtype=torch.float64, device=dev) + torch.tensor(
+            [[4.0, -3.0, 2.0], [-6.0, 1.0, 3.0], [0.5, 7.0, -2.0]], dtype=torch.float64,
+            device=dev)
+        with torch.no_grad():
+            s = fwd(ms[:, 0], ms[:, 1], ms[:, 2], prob.mxyz_fixed)
+        before = cuda_distance.LAUNCHES
+        v, g = loc_cmt_value_and_grad(ms, prob, InvOptions(), cfg, forward=fwd)
+        res.append((s.cpu().numpy(), v.cpu().numpy(), g.cpu().numpy(),
+                    cuda_distance.LAUNCHES - before))
+    (sc, vc, gc, nc), (sh, vh, gh, nh) = res
+    assert nc == 1 and nh == 0
+    dev = {"seis": np.abs(sc - sh).max() / np.abs(sh).max(),
+           "value": (np.abs(vc - vh) / np.abs(vh)).max(),
+           "grad": max(np.abs(a - b).max() / np.abs(b).max() for a, b in zip(gc, gh))}
+    assert max(dev.values()) <= LAYERED_CARD_TOL, dev
+
+
+def test_layered_paths_launch_the_kernel_once():
+    """At the bench's width (11 stations, nk 512, float32): one launch per
+    layered value+grad and per layered_misfit_grid call, one per chunk with
+    ``xy_chunk``."""
+    from chip_smoke import DM, build_layered_problem
+    from waveform_ot_torch.inversion import layered_misfit_grid
+
+    loc, cfg, prob, fwd, stages = build_layered_problem(torch.float32, torch.device("cuda"))
+    counts = []
+    for call in (
+            lambda: loc_cmt_value_and_grad(loc + torch.tensor(DM, device=loc.device), prob,
+                                           InvOptions(), cfg, forward=fwd),
+            lambda: layered_misfit_grid(loc.new_tensor([8.0, 15.0]), loc.new_tensor(
+                [[-4.0, 3.0], [5.0, -2.0], [0.0, 1.0]]), prob, InvOptions(), cfg, stages),
+            lambda: layered_misfit_grid(loc.new_tensor([8.0, 15.0]), loc.new_tensor(
+                [[-4.0, 3.0], [5.0, -2.0], [0.0, 1.0]]), prob, InvOptions(), cfg, stages,
+                xy_chunk=2)):
+        before = cuda_distance.LAUNCHES
+        out = call()
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(o).all()) for o in out)
+        counts.append(cuda_distance.LAUNCHES - before)
+    assert counts == [1, 1, 2]
+
+
+def test_layered_forward_ignores_the_tf32_switch():
+    """The Bessel-wavenumber contraction is a float64 product, so float32
+    seismograms at the bench's width are the same bit for bit with TF32
+    matrix products allowed and not."""
+    from chip_smoke import build_layered_problem
+
+    loc, _, prob, fwd, _ = build_layered_problem(torch.float32, torch.device("cuda"))
+    ms = loc + torch.tensor(np.random.default_rng(3).uniform(-8, 8, (8, 3)),
+                            dtype=torch.float32, device=loc.device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    out = []
+    try:
+        for allow in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            with torch.no_grad():
+                out.append(fwd(ms[:, 0], ms[:, 1], ms[:, 2], prob.mxyz_fixed))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(out[0], out[1])
+
+
+def test_layered_forward_of_64_sources_equals_single_calls():
+    """make_layered_forward on k = 64 sources, each with its own moment
+    tensor, float64: every lane within 1e-10 of its single-source call's
+    peak (the same elementwise arithmetic per lane)."""
+    from chip_smoke import LOC
+
+    dev = torch.device("cuda")
+    fwd, _, _, prob = _layered_setup(dev, torch.float64)
+    rng = np.random.default_rng(4)
+    xyz = torch.tensor(LOC + rng.uniform(-10, 10, (64, 3)), device=dev)
+    xyz[:, 2] = xyz[:, 2].abs() + 0.5
+    mm = prob.mxyz_fixed * torch.tensor(1 + 0.1 * rng.standard_normal((64, 1, 1)), device=dev)
+    with torch.no_grad():
+        u = fwd(xyz[:, 0], xyz[:, 1], xyz[:, 2], mm)
+        for i in range(64):
+            u1 = fwd(xyz[i, 0], xyz[i, 1], xyz[i, 2], mm[i])
+            assert (u[i] - u1).abs().max() <= 1e-10 * u1.abs().max(), i

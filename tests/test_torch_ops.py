@@ -16,6 +16,9 @@ import torch
 
 from waveform_ot_torch import _build, convert
 from waveform_ot_torch.inversion.pipeline import grid6_to_window
+from waveform_ot_torch.models.layered import (
+    fukuoka_model, layered_model_from_table, uniform_model,
+)
 from waveform_ot_torch.models.seismo import MediumConfig, moment_tensor_from_sdr
 from waveform_ot_torch.ops import cuda_distance
 from waveform_ot_torch.ops import errors as t_errors
@@ -220,6 +223,10 @@ DEFAULT_DEVICE_ENTRY_POINTS = {
     "grid6_to_window": lambda: grid6_to_window((0.0, 1.0, -1.0, 1.0, 3, 4))[0],
     "moment_tensor_from_sdr": lambda: moment_tensor_from_sdr(30.0, 60.0, 45.0),
     "MediumConfig.default": MediumConfig.default,
+    "convert.layered_model": lambda: convert.layered_model(_FAKE),
+    "fukuoka_model": fukuoka_model,
+    "uniform_model": uniform_model,
+    "layered_model_from_table": lambda: layered_model_from_table([(1.0, 6.0, 3.5, 2.7)]),
 }
 
 

@@ -1,7 +1,8 @@
 """Carry problem objects of the JAX package over to the port's tensors.
 
-The JAX package's ``LocCMTProblem`` and ``RickerProblem`` (with their
+The JAX package's ``LocCMTProblem``, ``RickerProblem`` (with their
 ``Window``, ``Targets``/``Density1D``, ``StationSet`` and ``MediumConfig``)
+and ``LayeredModel``
 are read by field name, array by array through numpy, so this module never
 imports JAX. Each array becomes a tensor on ``device``; floating arrays
 take ``dtype``. The device is the card unless the caller names another.
@@ -15,6 +16,7 @@ import torch
 from waveform_ot_torch.inversion.loc_cmt import LocCMTProblem
 from waveform_ot_torch.inversion.objective import RickerProblem
 from waveform_ot_torch.inversion.pipeline import Targets
+from waveform_ot_torch.models.layered import LayeredModel
 from waveform_ot_torch.models.seismo import MediumConfig, StationSet
 from waveform_ot_torch.ops.fingerprint import Window
 from waveform_ot_torch.ops.otpdf import Density1D
@@ -67,3 +69,8 @@ def ricker_problem(prob, device="cuda", dtype=torch.float64) -> RickerProblem:
                          window=window(prob.window, device, dtype),
                          trange=tuple(float(v) for v in prob.trange),
                          alpha=float(prob.alpha))
+
+
+def layered_model(model, device="cuda", dtype=torch.float64) -> LayeredModel:
+    """The port's LayeredModel from the JAX package's."""
+    return _fields(LayeredModel, model, device, dtype)

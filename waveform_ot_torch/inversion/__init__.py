@@ -14,8 +14,8 @@ from waveform_ot_torch.inversion.windows import (  # noqa: F401
 )
 from waveform_ot_torch.inversion.loc_cmt import (  # noqa: F401
     InvOptions, LocCMTObjective, LocCMTProblem, build_loc_cmt_problem,
-    loc_cmt_misfit, loc_cmt_value_and_grad, misfit_from_seis, misfit_grid,
-    predicted_seismograms,
+    layered_misfit_grid, loc_cmt_misfit, loc_cmt_value_and_grad,
+    misfit_from_seis, misfit_grid, predicted_seismograms,
 )
 from waveform_ot_torch.inversion.lbfgs import (  # noqa: F401
     LBFGSResult, minimize_lbfgs_batched, minimize_lbfgs_batched_host,

@@ -14,7 +14,7 @@ traces: the lanes are independent, so d(sum_j f_j)/dm_j = df_j/dm_j.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -26,6 +26,7 @@ from waveform_ot_torch.inversion.pipeline import (
 from waveform_ot_torch.inversion.windows import (
     build_windows, unit_amplitude_windows,
 )
+from waveform_ot_torch.models.layered import _moment_coeffs
 from waveform_ot_torch.models.seismo import (
     MediumConfig, StationSet, mxyz_from_upper, synthetic_seismograms,
 )
@@ -117,14 +118,21 @@ def _model_to_physics(ms, prob: LocCMTProblem, opts: InvOptions):
     return x, y, z, mxyz
 
 
-def predicted_seismograms(ms, prob: LocCMTProblem, opts: InvOptions):
+def predicted_seismograms(ms, prob: LocCMTProblem, opts: InvOptions,
+                          forward: Callable | None = None):
     """Forward physics: (k, nr, 3, nt) for models (k, nm), (nr, 3, nt) for
-    one model (nm,)."""
+    one model (nm,). ``forward(x, y, z, mxyz)`` with sources (k,) and the
+    moment tensor (3, 3) or (k, 3, 3) returns (k, nr, 3, nt) (e.g.
+    :func:`models.layered.make_layered_forward`); the default is
+    :func:`synthetic_seismograms`."""
     batch, single = as_model_batch(ms)
     x, y, z, mxyz = _model_to_physics(batch, prob, opts)
-    _, s = synthetic_seismograms(x, y, z, mxyz, prob.stations,
-                                 nt=prob.t.shape[0], dt=prob.t[1] - prob.t[0],
-                                 medium=prob.medium, fc=prob.fc, t0=prob.t[0])
+    if forward is not None:
+        s = forward(x, y, z, mxyz)
+    else:
+        _, s = synthetic_seismograms(x, y, z, mxyz, prob.stations,
+                                     nt=prob.t.shape[0], dt=prob.t[1] - prob.t[0],
+                                     medium=prob.medium, fc=prob.fc, t0=prob.t[0])
     return s[0] if single else s
 
 
@@ -157,47 +165,96 @@ def misfit_from_seis(s, prob: LocCMTProblem, opts: InvOptions,
     return v[0] if single else v
 
 
-def loc_cmt_misfit(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig):
+def loc_cmt_misfit(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig,
+                   forward: Callable | None = None):
     """OT (or L2) misfits (k,) of models ``ms`` (k, nm), each summed over
     all traces; a scalar for one model (nm,). One distance-field launch
-    for the whole batch."""
-    s = predicted_seismograms(ms, prob, opts)
+    for the whole batch. ``forward`` as in :func:`predicted_seismograms`."""
+    s = predicted_seismograms(ms, prob, opts, forward=forward)
     return misfit_from_seis(s, prob, opts, cfg)
 
 
 def loc_cmt_value_and_grad(ms, prob: LocCMTProblem, opts: InvOptions,
-                           cfg: TraceConfig):
+                           cfg: TraceConfig, forward: Callable | None = None):
     """(misfits (k,), gradients (k, nm)) of models ``ms`` (k, nm) by one
     autograd pass of the sum over lanes; (scalar, (nm,)) for one model.
     The reference optfunc contract, batched."""
     ms = ms.detach().requires_grad_(True)
     with torch.enable_grad():
-        v = loc_cmt_misfit(ms, prob, opts, cfg)
+        v = loc_cmt_misfit(ms, prob, opts, cfg, forward=forward)
         (g,) = torch.autograd.grad(v.sum(), ms)
     return v.detach(), g
 
 
-def misfit_grid(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig):
+def misfit_grid(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig,
+                forward: Callable | None = None):
     """Misfit-surface scan: misfits (k,) at the model nodes ``ms`` (k, nm),
     one batched evaluation (the reference's triple loop over the (z, x, y)
     grid). For values and gradients at every node, call
     :func:`loc_cmt_value_and_grad` on the same batch."""
-    return loc_cmt_misfit(ms, prob, opts, cfg)
+    return loc_cmt_misfit(ms, prob, opts, cfg, forward=forward)
 
 
 class LocCMTObjective(TensorTreeModule):
     """The loc/CMT misfit as a module: the problem's tensors are buffers, so
     ``.to(device)`` moves the problem, and ``forward(ms)`` returns the
-    misfits (k,) of a model batch (k, nm), or one model's scalar."""
+    misfits (k,) of a model batch (k, nm), or one model's scalar.
+    ``forward`` is the physics of :func:`predicted_seismograms`."""
 
-    def __init__(self, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig):
+    def __init__(self, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig,
+                 forward: Callable | None = None):
         super().__init__(prob)
         self.opts = opts
         self.cfg = cfg
+        self.physics = forward
 
     def forward(self, m):
-        return loc_cmt_misfit(m, self.tree(), self.opts, self.cfg)
+        return loc_cmt_misfit(m, self.tree(), self.opts, self.cfg, forward=self.physics)
 
     def value_and_grad(self, m):
-        return loc_cmt_value_and_grad(m, self.tree(), self.opts, self.cfg)
+        return loc_cmt_value_and_grad(m, self.tree(), self.opts, self.cfg,
+                                      forward=self.physics)
+
+
+def layered_misfit_grid(zs, xy, prob: LocCMTProblem, opts: InvOptions,
+                        cfg: TraceConfig, stages, xy_chunk: int | None = None):
+    """Depth-amortized misfit-surface scan through the layered physics:
+    values (nz, nxy) and (x, y, z) gradients (nz, nxy, 3) at every node of
+    the (depths ``zs`` (nz,)) x (horizontal nodes ``xy`` (nxy, 2)) grid, the
+    reference's Figs_9_10_11 cell-64 workload.
+
+    ``stages`` = :func:`models.layered.make_layered_stages` (the problem's
+    nt, dt, nk, ...). Stage A and its z-tangent run once for all nz depths;
+    the response runs once per depth; every node gets its own Bessel
+    assembly, synthesis and misfit, and its z gradient is the contraction
+    of its spectra's cotangent with their z-tangent (the structured-VJP
+    identity of make_layered_forward, amortized over the slice). All nodes
+    go through one evaluation, so one distance-field launch; ``xy_chunk``
+    evaluates the horizontal nodes in chunks of that size to bound memory
+    (one launch per chunk). The moment tensor stays ``prob.mxyz_fixed``.
+    """
+    if opts.cmt:
+        raise ValueError("layered_misfit_grid scans location only "
+                         "(cmt=True has no 3-vector gradient contract)")
+    stage_a, stage_b = stages
+    dtype, device = xy.dtype, xy.device
+    # the depth floor's value; its straight-through gradient factor is 1
+    zc = torch.clamp_min(torch.as_tensor(zs, dtype=dtype, device=device), opts.zmin)
+    ops, dops = stage_a(zc, tangent=True)
+    a = _moment_coeffs(prob.mxyz_fixed)
+    nz, nxy = zc.shape[0], xy.shape[0]
+    step = nxy if xy_chunk is None else xy_chunk
+    vals, grads = [], []
+    for lo in range(0, nxy, step):
+        part = xy[lo:lo + step]
+        n = part.shape[0]
+        leaf = lambda v: v.detach().expand(nz, n).clone().requires_grad_(True)
+        x, y, z = leaf(part[:, 0]), leaf(part[:, 1]), leaf(zc[:, None])
+        with torch.enable_grad():
+            s = stage_b(ops, x, y, z, a, prob.stations, dops)
+            v = misfit_from_seis(s.reshape((nz * n,) + s.shape[2:]), prob, opts, cfg)
+            g = torch.autograd.grad(v.sum(), (x, y, z))
+        vals.append(v.detach().reshape(nz, n))
+        grads.append(torch.stack(g, -1))
+    return torch.cat(vals, 1), torch.cat(grads, 1)
 

@@ -1,4 +1,4 @@
-"""Forward models: Ricker wavelets and far-field seismograms."""
+"""Forward models: Ricker wavelets, far-field and layered-medium seismograms."""
 
 from waveform_ot_torch.models.ricker import (  # noqa: F401
     ricker, ricker_wavelet, ricker_wavelet_with_jacobian,
@@ -6,4 +6,9 @@ from waveform_ot_torch.models.ricker import (  # noqa: F401
 from waveform_ot_torch.models.seismo import (  # noqa: F401
     MediumConfig, StationSet, moment_tensor_from_sdr, moment_tensor_ls,
     mxyz_from_upper, synthetic_seismograms, upper_from_mxyz,
+)
+from waveform_ot_torch.models.layered import (  # noqa: F401
+    LayeredModel, bessel_j0123, fukuoka_model, layered_model_from_table,
+    layered_seismograms, make_layered_forward, make_layered_stages,
+    uniform_model, wholespace_seismograms,
 )
