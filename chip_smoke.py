@@ -58,7 +58,26 @@ is non-zero:
                 minimize_lbfgs_batched_host(max_iter 25, tol 1e-4, ls_max 8),
                 unchunked; at least 75% of starts within 1 km of the source,
                 one kernel launch per batched evaluation; time, iterations,
-                evaluations, launches, the share converged, the worst error.
+                evaluations, launches, the share converged, the worst error;
+ 12. toolbox    the reference's OT and fingerprint toolbox through the port's
+                compat layer, float64 (toolbox_phase): the FingerprintLib
+                demo's 800x600 fingerprints of a 626-sample receiver function
+                and of a delayed copy, and the two 40x120 fingerprints of
+                examples/reference_migration.py (each calcpdf in one kernel
+                launch, bit for bit the plain field on the card, the CPU's
+                pdf within 1e-12; 4 launches on the path, asserted; the
+                vertex-NN fields; PDFderivMarg against autograd); between the
+                800x600 pair MargWasserstein, SlicedWasserstein (10 slices),
+                wasser W12 with plan and plan Jacobian on the time marginals,
+                both barypaths and the Gaussian Sinkhorn at 1, 16 and 64 px
+                (held by its fixed-point residual at 64 px); on the 40x120 pair
+                Sinkhorn_MS and sinkhorn_log (card vs CPU over their first 20
+                steps, in full on the card held by their plans' marginals and
+                by each other) and the plan Jacobians; that script's n = 10
+                flow with its assertions. Every card result against the same
+                call on the CPU's inputs and fingerprints (closed forms 1e-9
+                relative, Sinkhorns 1e-8); a host-clock median per call; the
+                blur's band products against conv1d at 1 and 64 px.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -134,6 +153,42 @@ OPS_PER_PAIR = 12
 OPS_PER_LINE = 2
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
+# phase 12: FingerprintLib's self-demo (examples/receiver_function_demo.py:35-45)
+RF_NT, RF_NU, RF_NTG, RF_LAMBDA = 626, 800, 600, 0.04
+RF_SHIFT = 0.01                  # s: the predicted RF is the observed one delayed
+TOOLBOX_NPROJ = 10               # the reference's _checkderivSliced default
+BARY_NPOINTS = 50000
+SINKHORN_ITERS = 250             # the reference Sinkhorn's default
+# Gaussian Sinkhorn's sigma in pixels. No reference flow sets one for an
+# 800x600 grid: the reference default gamma 0.005 is an identity blur, and the
+# repo's tests use 1 px (tests/test_parity_reference.py:506). 64 px is a
+# stand-in at which the reference's 250 steps reach the fixed point; the phase
+# runs and prints every sigma of SINKHORN_SIGMAS, holds the fixed point at
+# SINKHORN_SIGMA_PX only, and times the call at 1 px and at SINKHORN_SIGMA_PX.
+SINKHORN_SIGMA_PX = 64.0
+SINKHORN_SIGMAS = (1.0, 16.0, SINKHORN_SIGMA_PX)
+SINKHORN_RESIDUAL = 1e-4         # max |v K(w) - mu0| / max mu0 after the steps
+SINKHORN_LAST_HALF_STEP = 1e-12  # max |w K(v) - mu1| / max mu1: w's own update
+# The 4,800-point Sinkhorns are held card vs CPU over their first steps (a
+# step is the same arithmetic at every count) and run in full on the card
+# only. There the plan's marginal that the last half step sets must hold to
+# 1e-12; Sinkhorn_MS's other marginal (the fixed point, 3.6e-6 in a float64
+# CPU run of the same call) to DENSE_RESIDUAL; sinkhorn_log, 500 steps short of
+# its fixed point (2.6e-2), must equal Sinkhorn_MS stopped at 500 steps, the
+# same iteration in scaling form.
+SINKHORN_PREFIX = 20
+DENSE_RESIDUAL = 1e-4
+TOOLBOX_LAUNCHES = 4             # one per calcpdf(Enumerate): 2 RF, 2 migration
+MIG_SEED, MIG_N = 61254557, 10   # examples/reference_migration.py:31-33
+CLOSED_RTOL = 1e-9               # card vs CPU, closed forms (scatter order differs)
+ITERATED_RTOL = 1e-8             # card vs CPU, the iterated Sinkhorns
+PDF_ATOL = 1e-12                 # calcpdf's pdf, card vs CPU
+# calcpdf's grid positions (within [0, 1]), card vs CPU: the card divides by a
+# host scalar as a product with its reciprocal, so linspace's i / (n - 1)
+# parts from the CPU's by an ulp at some points
+POS_ATOL = 1e-15
+CHAIN_RTOL = 1e-8                # PDFderivMarg vs autograd
+TOOLBOX_TIMED = 5                # host-clock median of 5 (Sinkhorns: 3)
 
 
 def build_loc64_problem(nr: int, dtype, device):
@@ -260,6 +315,53 @@ def build_ricker_inversion(dtype, device):
     return prob, cfg, arr(RICKER_START)
 
 
+def rf_waveform(shift: float = 0.0):
+    """FingerprintLib's synthetic receiver function, 2 sin(6 pi t) -
+    3 cos(2 pi (2t + 0.3)) on RF_NT samples of [0, 1], delayed by ``shift`` s."""
+    t = np.linspace(0.0, 1.0, RF_NT)
+    s = t - shift
+    return t, 2 * np.sin(s * 6 * np.pi) - 3 * np.cos((2 * s + 0.30) * 2 * np.pi)
+
+
+def rf_grid6():
+    """The demo's (t0, t1, u0, u1, nu, ntg): the time span, the observed RF's
+    amplitude range padded by 15% of itself on both sides, the 800x600 grid."""
+    t, rf = rf_waveform()
+    du = rf.max() - rf.min()
+    return (t[0], t[-1], rf.min() - 0.15 * du, rf.max() + 0.15 * du, RF_NU, RF_NTG)
+
+
+def migration_waveforms():
+    """examples/reference_migration.py:70-73: (t, predicted, observed, grid6)
+    of the 40x120 fingerprint flow."""
+    t = np.linspace(0.0, 6.0, 120)
+    return (t, np.sin(3 * (t - 0.15)) * np.exp(-0.3 * t), np.sin(3 * t) * np.exp(-0.3 * t),
+            (t[0], t[-1], -1.4, 1.4, 40, len(t)))
+
+
+def fingerprint_pdfs(t, waves, grid, lambdav, device, deriv=False):
+    """compat.waveformFP objects of each waveform, calcpdf'd (Enumerate)."""
+    from waveform_ot_torch import compat
+
+    out = []
+    for w in waves:
+        wf = compat.waveformFP(t, w, grid, device=device)
+        wf.calcpdf(lambdav=lambdav, method="Enumerate", deriv=deriv)
+        out.append(wf)
+    return out
+
+
+def conv_blur(image, sigma):
+    """The zero-padded Gaussian blur of a 2-D image as two conv1d calls (one
+    per axis), the plain alternative to the port's band-matrix products."""
+    from waveform_ot_torch.ops.sinkhorn import _gaussian_kernel_1d
+
+    k = _gaussian_kernel_1d(sigma, image.device)[None, None]
+    r = (k.shape[-1] - 1) // 2
+    rows = torch.nn.functional.conv1d(image[:, None], k, padding=r)[:, 0]
+    return torch.nn.functional.conv1d(rows.T.contiguous()[:, None], k, padding=r)[:, 0].T
+
+
 def _field_inputs(t, w, win, spec):
     """(verts, tgrid, ugrid), contiguous, as fingerprint_density forms them."""
     from waveform_ot_torch.ops.fingerprint import grid_axes, normalize_vertices
@@ -312,13 +414,10 @@ def main_path_shapes(dtype, device, golden):
         ricker = _field_inputs(t, wn, win01, rcfg.spec)
 
         # FingerprintLib's demo at full scale: 626 samples, 800x600 grid
-        tb = torch.linspace(0.0, 1.0, 626, dtype=torch.float64)
-        wb = 2 * torch.sin(tb * 6 * np.pi) - 3 * torch.cos((2 * tb + 0.30) * 2 * np.pi)
-        du = float(wb.max() - wb.min())
-        bwin = make_window(0.0, 1.0, float(wb.min()) - 0.15 * du,
-                           float(wb.max()) + 0.15 * du, dtype=dtype, device=device)
-        bigfp = _field_inputs(tb.to(device, dtype), wb.to(device, dtype)[None], bwin,
-                              FingerprintSpec(nu=800, ntg=600))
+        tb, wb = (torch.as_tensor(a, dtype=dtype, device=device) for a in rf_waveform())
+        t0, t1, u0, u1, nu, ntg = rf_grid6()
+        bwin = make_window(t0, t1, u0, u1, dtype=dtype, device=device)
+        bigfp = _field_inputs(tb, wb[None], bwin, FingerprintSpec(nu=nu, ntg=ntg))
     return {"loc64": loc64, "ricker": ricker, "bigfp": bigfp,
             "multistart": multistart, "scan": scan, "layered": layered}
 
@@ -586,6 +685,317 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
     return launches
 
 
+def _nested_dev(got, ref) -> float:
+    """max |got - ref| / max |ref| over (nested lists of) arrays and numbers."""
+    if isinstance(ref, (list, tuple)):
+        return max(_nested_dev(a, b) for a, b in zip(got, ref))
+    got, ref = np.asarray(got, dtype=np.float64), np.asarray(ref, dtype=np.float64)
+    if got.shape != ref.shape:
+        raise AssertionError(f"shapes differ: {got.shape} vs {ref.shape}")
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+def toolbox_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 12: the reference's OT and fingerprint toolbox on the card through
+    the port's compat layer, float64. Returns the kernel launches of the path
+    ({"toolbox": n}) and of one calcpdf."""
+    from waveform_ot_torch import compat
+    from waveform_ot_torch.ops import (
+        FingerprintSpec, cuda_distance, distance_field_torch, fingerprint_density, grid_axes,
+    )
+    from waveform_ot_torch.ops.fingerprint import nearest_vertex
+    from waveform_ot_torch.ops.sinkhorn import gaussian_filter, sinkhorn_log
+    from waveform_ot_torch.ops.sliced import sliced_plan_jacobian
+    from waveform_ot_torch.ops.validate import monge_1d
+
+    cpu, f64 = torch.device("cpu"), torch.float64
+    t_phase = time.perf_counter()
+    checks = []
+
+    def hold(name, dev_, bound):
+        checks.append(name)
+        print(f"[toolbox] {name}: {dev_:.3e} (bound {bound:g})")
+        if not dev_ <= bound:
+            raise AssertionError(f"toolbox {name}: {dev_!r} exceeds {bound:g}")
+
+    def both(name, call, card_args, cpu_args, bound):
+        """call(*args) on the card's and on the CPU's twin inputs, each run
+        timed once; holds the card's result against the CPU's at ``bound``
+        (largest relative deviation) and returns the card's."""
+        t0 = time.perf_counter()
+        got = call(*card_args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = call(*cpu_args)
+        t2 = time.perf_counter()
+        hold(f"{name}, card vs cpu (one run each: card {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s)",
+             _nested_dev(got, ref), bound)
+        return got
+
+    def held_fingerprints(t_, waves, grid_, lambdav, name, deriv=False):
+        """calcpdf (Enumerate) of each waveform on the card and on the CPU.
+        Each card call launches the kernel exactly once, its d, iclose, lam
+        and dvec equal distance_field_torch on the card's inputs bit for bit,
+        its pdf the CPU's within PDF_ATOL and its grid positions the CPU's
+        within POS_ATOL. Returns (card, cpu) objects."""
+        card, host = [], []
+        for i, w in enumerate(waves):
+            torch.cuda.synchronize()
+            before = cuda_distance.LAUNCHES
+            wfo = compat.waveformFP(t_, w, grid_, device=dev)
+            wfo.calcpdf(lambdav=lambdav, method="Enumerate", deriv=deriv)
+            torch.cuda.synchronize()
+            n = cuda_distance.LAUNCHES - before
+            tg_, ug_ = grid_axes(wfo._t, wfo._win, wfo._spec)
+            plain = distance_field_torch(wfo._pn[None].contiguous(), tg_[None].contiguous(),
+                                         ug_[None].contiguous())
+            same = [torch.equal(a, b[0]) for a, b in zip(wfo._fld, plain)]
+            print(f"[toolbox] calcpdf(Enumerate{', deriv' if deriv else ''}) {name}[{i}] "
+                  f"{wfo.nug}x{wfo.ntg}, {len(t_)} samples: kernel launches {n}; d, iclose, "
+                  f"lam, dvec bit for bit the plain field: {same}")
+            if n != 1:
+                raise AssertionError(f"calcpdf {name}[{i}] launched the kernel {n} times")
+            if not all(same):
+                raise AssertionError(f"calcpdf {name}[{i}]: field differs from "
+                                     f"distance_field_torch on the card")
+            (wfc,) = fingerprint_pdfs(t_, [w], grid_, lambdav, cpu)
+            hold(f"calcpdf {name}[{i}] pdf, card vs cpu, max abs",
+                 float(np.abs(wfo.pdf - wfc.pdf).max()), PDF_ATOL)
+            hold(f"calcpdf {name}[{i}] grid positions, card vs cpu, max abs",
+                 float(np.abs(wfo.pos - wfc.pos).max()), POS_ATOL)
+            card.append(wfo)
+            host.append(wfc)
+        return card, host
+
+    def otpdfs(fps, dev_):
+        return [compat.OTpdf((w.pdf, w.pos), dev_) for w in fps]
+
+    # 12a. the 800x600 fingerprints through the reference API
+    t, rf = rf_waveform()
+    _, rfd = rf_waveform(RF_SHIFT)
+    grid = rf_grid6()
+    torch.cuda.synchronize()
+    cuda_distance.LAUNCHES = 0
+    (wfp, wf), fps_cpu = held_fingerprints(t, [rfd, rf], grid, RF_LAMBDA, "RF (delayed, observed)",
+                                           deriv=True)
+    tg, ug = grid_axes(wf._t, wf._win, wf._spec)
+
+    wfn = compat.waveformFP(t, rf, grid, device=dev)
+    wfn.calcpdf(lambdav=RF_LAMBDA, method="NNsearch")
+    nn0 = compat.NNsearch(wf)
+    nn2 = compat.NNsearch(wf, ni=2)
+    flips = wfn.irays != wf.irays
+    gap = np.abs(wfn.dfield - wf.dfield).ravel()
+    print(f"[toolbox] calcpdf(NNsearch): irays differ from Enumerate's at {flips.mean():.6f} of "
+          f"the grid, largest |d_nn - d| there {gap[flips].max(initial=0.0):.3e}; NNsearch(wf) "
+          f"vs calcpdf(NNsearch) max |dd| {np.abs(nn0[0] - wfn.dfield).max():.3e}; "
+          f"NNsearch(wf, ni=2) largest |d - d_exact| {np.abs(nn2[0] - wf.dfield).max():.3e}")
+    for name, d in (("NNsearch", wfn.dfield), ("NNsearch ni=0", nn0[0]),
+                    ("NNsearch ni=2", nn2[0])):
+        hold(f"{name} below the exact field (it never undershoots)",
+             float(np.maximum(wf.dfield - d, 0.0).max()), 1e-12)
+    hold("calcpdf(NNsearch) vs NNsearch(wf)", float(np.abs(nn0[0] - wfn.dfield).max()), 1e-12)
+    pts = torch.stack([tg.expand(RF_NU, RF_NTG), ug[:, None].expand(RF_NU, RF_NTG)], dim=-1)
+    ivert = np.clip(nearest_vertex(wf._pn, pts.reshape(-1, 2)).cpu().numpy(), 0, RF_NT - 2)
+    adjacent = (wf.irays == ivert) | (wf.irays == np.maximum(ivert - 1, 0))
+    hold("grid points where NNsearch differs though the exact winner is adjacent to the "
+         "nearest vertex", float((adjacent & (gap > 1e-12)).sum()), 0.0)
+
+    ot = {"card": otpdfs((wfp, wf), dev), "cpu": otpdfs(fps_cpu, cpu)}
+
+    # 12b. OT between the predicted (delayed) and the observed fingerprint
+    marg = both("MargWasserstein(derivatives, returnmargW)",
+                lambda s, o: compat.MargWasserstein(s, o, derivatives=True, returnmargW=True),
+                ot["card"], ot["cpu"], CLOSED_RTOL)
+    rows = wfp.PDFderivMarg(marg[1])
+    wt = torch.tensor(rfd, dtype=f64, device=dev, requires_grad=True)
+    before = cuda_distance.LAUNCHES      # the check's own launch is not the path's
+    pdf, _ = fingerprint_density(torch.tensor(t, dtype=f64, device=dev), wt[None], wfp._win,
+                                 FingerprintSpec(nu=RF_NU, ntg=RF_NTG), lambdav=RF_LAMBDA)
+    auto = [torch.autograd.grad((pdf[0] * torch.tensor(cm, device=dev)).sum(), wt,
+                                retain_graph=True)[0].cpu().numpy() for cm in marg[1]]
+    oracle = cuda_distance.LAUNCHES - before
+    hold("PDFderivMarg vs autograd through fingerprint_density", _nested_dev(rows, auto),
+         CHAIN_RTOL)
+    sliced = both(f"SlicedWasserstein({TOOLBOX_NPROJ}, derivatives), {RF_NU * RF_NTG} points "
+                  f"per slice",
+                  lambda s, o: compat.SlicedWasserstein(s, o, TOOLBOX_NPROJ, derivatives=True),
+                  ot["card"], ot["cpu"], CLOSED_RTOL)
+    for pair in ot.values():
+        for o in pair:
+            o.setMarginals()
+    tm = {where: (pair[0].marg[0], pair[1].marg[0]) for where, pair in ot.items()}
+    w12 = both(f"wasser W12 + plan + plan Jacobian ({RF_NTG}^3) on the time marginals",
+               lambda s, o: compat.wasser(s, o, "W12", derivatives=True, returnplan=True),
+               tm["card"], tm["cpu"], CLOSED_RTOL)
+    plan = w12[6]
+    hold("the plan's marginals vs the pdfs", max(
+        float(np.abs(plan.sum(1) - tm["card"][0].pdf).max()),
+        float(np.abs(plan.sum(0) - tm["card"][1].pdf).max())), 1e-12)
+    weights = np.linspace(0.0, 1.0, 5)
+    both(f"barypath continuous ({BARY_NPOINTS} points)",
+         lambda s, o: compat.barypath(s, o, weights, npoints=BARY_NPOINTS),
+         tm["card"], tm["cpu"], CLOSED_RTOL)
+    both("barypath pointmass", lambda s, o: compat.barypath(s, o, weights, pointmass=True),
+         tm["card"], tm["cpu"], CLOSED_RTOL)
+    mu0, mu1 = ot["card"][0].pdf, ot["card"][1].pdf
+    for sigma in SINKHORN_SIGMAS:
+        # card vs CPU over all 250 steps at SINKHORN_SIGMA_PX, over the first
+        # SINKHORN_PREFIX elsewhere (the CPU's products are slow at 1 px)
+        steps = SINKHORN_ITERS if sigma == SINKHORN_SIGMA_PX else SINKHORN_PREFIX
+        sk = both(f"Gaussian Sinkhorn ({RF_NU}x{RF_NTG}, sigma {sigma:g} px), the first "
+                  f"{steps} steps", lambda s, o: compat.Sinkhorn(s, o, gamma=sigma, iter=steps),
+                  ot["card"], ot["cpu"], ITERATED_RTOL)
+        if steps != SINKHORN_ITERS:
+            sk = compat.Sinkhorn(*ot["card"], gamma=sigma, iter=SINKHORN_ITERS)
+        d_, v_, w_ = sk
+        blur = lambda a: compat.filter(a, sigma, device=dev)
+        res0 = float(np.abs(v_ * blur(w_) - mu0).max() / mu0.max())
+        res1 = float(np.abs(w_ * blur(v_) - mu1).max() / mu1.max())
+        print(f"[toolbox] Gaussian Sinkhorn sigma {sigma:g} px, {SINKHORN_ITERS} steps: distance "
+              f"{d_!r}; max |v K(w) - mu0| / max mu0 {res0:.3e}; max |w K(v) - mu1| / max mu1 "
+              f"{res1:.3e}")
+        hold(f"... sigma {sigma:g} px: max |w K(v) - mu1| / max mu1 (w's own update)", res1,
+             SINKHORN_LAST_HALF_STEP)
+        if sigma == SINKHORN_SIGMA_PX:
+            hold(f"... sigma {sigma:g} px: max |v K(w) - mu0| / max mu0 (the fixed point)",
+                 res0, SINKHORN_RESIDUAL)
+        both(f"gaussian blur at {RF_NU}x{RF_NTG}, sigma {sigma:g} px", lambda a, d: compat.filter(
+            a, sigma, device=d), (mu1, dev), (mu1, cpu), 1e-12)
+        hold(f"gaussian blur sigma {sigma:g} px vs conv1d", _nested_dev(
+            conv_blur(torch.tensor(mu1, device=dev), sigma).cpu().numpy(),
+            compat.filter(mu1, sigma, device=dev)), 1e-12)
+    print(f"[toolbox] MargWasserstein [Wt, Wu] {marg[0]}; sliced W2 {sliced[0]!r}; W1, W2 of the "
+          f"time marginals {w12[0]!r}, {w12[3]!r}")
+
+    # 12c. dense and log-domain Sinkhorn, plan Jacobians (40x120, 4,800 points)
+    tm_, wpred, wobs, mgrid = migration_waveforms()
+    mfp, mfp_cpu = held_fingerprints(tm_, [wpred, wobs], mgrid, 0.04, "migration")
+    mig = {"card": otpdfs(mfp, dev), "cpu": otpdfs(mfp_cpu, cpu)}
+    both(f"Sinkhorn_MS (gamma 5e-4) at 4,800 points, the first {SINKHORN_PREFIX} steps",
+         lambda s, o: compat.Sinkhorn_MS(s, o, maxiters=SINKHORN_PREFIX),
+         mig["card"], mig["cpu"], ITERATED_RTOL)
+    both(f"sinkhorn_log (gamma 5e-4) at 4,800 points, the first {SINKHORN_PREFIX} steps",
+         lambda s, o: [v.cpu().numpy() for v in sinkhorn_log(s.density, o.density,
+                                                             iters=SINKHORN_PREFIX)],
+         mig["card"], mig["cpu"], ITERATED_RTOL)
+    # the full-length runs, on the card only
+    src = mfp[0].pdf.ravel() / mfp[0].pdf.sum()
+    tgt = mfp[1].pdf.ravel() / mfp[1].pdf.sum()
+    dist, pi = compat.Sinkhorn_MS(*mig["card"])
+    if not (np.isfinite(dist) and np.isfinite(pi).all()):
+        raise AssertionError("Sinkhorn_MS on the card: distance or plan not finite")
+    print(f"[toolbox] Sinkhorn_MS (5001 steps) on the card: W2^2 estimate {float(dist)!r}")
+    hold("Sinkhorn_MS (5001 steps): the plan's target marginal (its last half step)",
+         _nested_dev(pi.sum(1), tgt), SINKHORN_LAST_HALF_STEP)
+    hold("Sinkhorn_MS (5001 steps): the plan's source marginal (the fixed point)",
+         _nested_dev(pi.sum(0), src), DENSE_RESIDUAL)
+    ld, lpi = (v.cpu().numpy() for v in sinkhorn_log(mig["card"][0].density,
+                                                      mig["card"][1].density, iters=500))
+    print(f"[toolbox] sinkhorn_log (500 steps) on the card: W2^2 estimate {float(ld)!r}; its "
+          f"plan's source marginal {_nested_dev(lpi.sum(1), src):.3e} from the source")
+    hold("sinkhorn_log (500 steps): the plan's target marginal (its last half step)",
+         _nested_dev(lpi.sum(0), tgt), SINKHORN_LAST_HALF_STEP)
+    md, mpi = compat.Sinkhorn_MS(*mig["card"], maxiters=500)
+    hold("sinkhorn_log (500 steps) vs Sinkhorn_MS (500 steps), the same iteration in scaling "
+         "form, on the card", _nested_dev([ld, lpi], [md, mpi.T]), ITERATED_RTOL)
+    rng = np.random.default_rng(MIG_SEED)
+    jac_in = {10: (rng.random(10), rng.random(10), np.linspace(0.0, 1.0, 10)),
+              200: (rng.random(200), rng.random(200), np.linspace(0.0, 1.0, 200))}
+    for n, (f, g, x) in jac_in.items():
+        pair = {w: (compat.OTpdf((f, x), d), compat.OTpdf((g, x), d))
+                for w, d in (("card", dev), ("cpu", cpu))}
+        both(f"transport_plan_jacobian n={n}",
+             lambda s, o: compat.wasser(s, o, "W2", derivatives=True, returnplan=True)[-1],
+             pair["card"], pair["cpu"], CLOSED_RTOL)
+        nx = 2 if n == 10 else 10
+        pos = np.dstack(np.meshgrid(np.linspace(0, 1, n // nx), np.linspace(0, 1, nx)))
+        pair = {w: (compat.OTpdf((f.reshape(nx, -1), pos), d),
+                    compat.OTpdf((g.reshape(nx, -1), pos), d))
+                for w, d in (("card", dev), ("cpu", cpu))}
+        both(f"sliced_plan_jacobian n={n} ({nx}x{n // nx} grid, {TOOLBOX_NPROJ} slices)",
+             lambda s, o: sliced_plan_jacobian(s.density, o.density,
+                                               TOOLBOX_NPROJ).cpu().numpy(),
+             pair["card"], pair["cpu"], CLOSED_RTOL)
+
+    # 12d. examples/reference_migration.py's n = 10 flow on the card
+    rng = np.random.default_rng(MIG_SEED)
+    f, g = rng.random(MIG_N), rng.random(MIG_N)
+    x = np.linspace(0.0, 1.0, MIG_N)
+    src, tgt = compat.OTpdf((f, x), dev), compat.OTpdf((g, x), dev)
+    w1, _, _, w2, _, _ = compat.wasser(src, tgt, "W12", derivatives=True)
+    w1n, w2n = compat.wasserNumInt(src, tgt)
+    wlp, _ = compat.Wasser_LinProg(src, tgt, distfunc="W2")
+    _, c = monge_1d(f, g)
+    ws, _ = compat.Sinkhorn_MS(src, tgt, gamma=2e-3, maxiters=800)
+    print(f"[toolbox] reference_migration n={MIG_N}: wasser W1 {w1!r} W2^2 {w2!r}; numint "
+          f"{w1n!r} {w2n!r}; LP {wlp!r}; Monge {c!r}; Sinkhorn_MS {ws!r}")
+    hold("LP vs Monge", abs(wlp - c), 1e-8)
+    hold("wasser vs LP and Monge", max(abs(wlp - w2), abs(c - w2)), 1e-8)
+    hold("wasser vs numerical integration", max(abs(w1n - w1), abs(w2n - w2)), 5e-4)
+    hold("wasser vs Sinkhorn_MS (gamma 2e-3, 800 steps)", abs(ws - w2), 5e-3)
+    cpu_pair = (compat.OTpdf((f, x), cpu), compat.OTpdf((g, x), cpu))
+    both("migration wasser W12 + plan + Jacobian",
+         lambda s, o: compat.wasser(s, o, "W12", derivatives=True, returnplan=True),
+         (src, tgt), cpu_pair, CLOSED_RTOL)
+    both("migration Sinkhorn_MS", lambda s, o: compat.Sinkhorn_MS(s, o, gamma=2e-3, maxiters=800),
+         (src, tgt), cpu_pair, ITERATED_RTOL)
+    mw = both("migration MargWasserstein",
+              lambda s, o: compat.MargWasserstein(s, o, "W2", derivatives=True, returnmargW=True),
+              mig["card"], mig["cpu"], CLOSED_RTOL)
+    if not (mw[0][0] > 0 and np.all(np.isfinite(mw[1][0]))):
+        raise AssertionError(f"migration MargWasserstein {mw[0]} is not positive and finite")
+    both("migration SlicedWasserstein(8)", lambda s, o: compat.SlicedWasserstein(s, o, 8),
+         mig["card"], mig["cpu"], CLOSED_RTOL)
+    torch.cuda.synchronize()
+    launches = cuda_distance.LAUNCHES - oracle
+    checked_s = time.perf_counter() - t_phase
+    print(f"[toolbox] {len(checks)} checks held in {checked_s:.1f} s (card and CPU runs); "
+          f"distance-field kernel launches on the path {launches}, one per calcpdf(Enumerate)")
+    if launches != TOOLBOX_LAUNCHES:
+        raise AssertionError(f"the toolbox path launched the distance-field kernel {launches} "
+                             f"times, not {TOOLBOX_LAUNCHES}")
+
+    # timings, after the path's launches are read
+    calls = [
+        ("calcpdf Enumerate+deriv 800x600", lambda: wf.calcpdf(
+            lambdav=RF_LAMBDA, method="Enumerate", deriv=True), TOOLBOX_TIMED),
+        ("calcpdf NNsearch 800x600", lambda: wfn.calcpdf(
+            lambdav=RF_LAMBDA, method="NNsearch"), TOOLBOX_TIMED),
+        ("NNsearch ni=2 800x600", lambda: compat.NNsearch(wf, ni=2), TOOLBOX_TIMED),
+        ("MargWasserstein derivatives", lambda: compat.MargWasserstein(
+            *ot["card"], derivatives=True, returnmargW=True), TOOLBOX_TIMED),
+        (f"SlicedWasserstein {TOOLBOX_NPROJ} derivatives", lambda: compat.SlicedWasserstein(
+            *ot["card"], TOOLBOX_NPROJ, derivatives=True), TOOLBOX_TIMED),
+        ("wasser W12 + plan + Jacobian 600", lambda: compat.wasser(
+            *tm["card"], "W12", derivatives=True, returnplan=True), TOOLBOX_TIMED),
+        ("barypath continuous", lambda: compat.barypath(
+            *tm["card"], weights, npoints=BARY_NPOINTS), TOOLBOX_TIMED),
+        ("barypath pointmass", lambda: compat.barypath(*tm["card"], weights, pointmass=True),
+         TOOLBOX_TIMED),
+        *((f"Sinkhorn Gaussian {SINKHORN_ITERS} steps 800x600 sigma {sigma:g} px",
+           lambda sigma=sigma: compat.Sinkhorn(*ot["card"], gamma=sigma, iter=SINKHORN_ITERS),
+           3) for sigma in (1.0, SINKHORN_SIGMA_PX)),
+        ("Sinkhorn_MS 5001 steps 4800", lambda: compat.Sinkhorn_MS(*mig["card"]), 3),
+        ("sinkhorn_log 500 steps 4800", lambda: sinkhorn_log(
+            mig["card"][0].density, mig["card"][1].density, iters=500), 3),
+    ]
+    for name, fn, n in calls:
+        ms_call = host_median_ms(fn, n=n, warm=1)
+        print(f"[timing] toolbox {name}: {ms_call:.4f} ms/call (host clock, synchronized, "
+              f"median of {n}) {card}")
+    img = torch.tensor(mu1, device=dev)
+    for sigma in (1.0, SINKHORN_SIGMA_PX):
+        taps = 2 * int(32 * sigma + 0.5) + 1
+        band = device_ms(lambda: gaussian_filter(img, sigma), launches=20)
+        conv = device_ms(lambda: conv_blur(img, sigma), launches=20)
+        print(f"[timing] toolbox gaussian blur 800x600 sigma {sigma:g} px ({taps} taps): band "
+              f"products {band:.4f} ms, conv1d {conv:.4f} ms (device, 20 back-to-back calls, "
+              f"median of {SAMPLES}) {card}")
+    print(f"[toolbox] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"toolbox": launches}, {"toolbox_calcpdf": 1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -840,6 +1250,10 @@ def main() -> int:
     # 9-11. the layered f-k physics
     launches.update(layered_phases(dev, opts, card, per_eval))
 
+    # 12. the OT and fingerprint toolbox through the compat layer
+    toolbox, toolbox_per_call = toolbox_phase(dev, card)
+    launches.update(toolbox)
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -848,7 +1262,8 @@ def main() -> int:
         "launches": sum(launches.values()), "launches_by_path": launches,
         "launches_per_call": {"loc64": launches["loc64"], "ricker": launches["ricker"],
                               "scan": launches["scan"], "layered": launches["layered"],
-                              "layered_scan": launches["layered_scan"], **per_eval},
+                              "layered_scan": launches["layered_scan"], **per_eval,
+                              **toolbox_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -12,14 +12,19 @@ Builds the workload's problem as chip_smoke.py does (float32, 79x61 grids):
                 stations, nk 512 (10 calls);
   layered_scan  layered_misfit_grid at the 1,764 scan nodes (3 calls);
   layered_ms    the 64-start study through minimize_lbfgs_batched_host and
-                the layered physics (1 call),
+                the layered physics (1 call);
+  toolbox       chip_smoke.py phase 12's sliced and Sinkhorn calls, float64,
+                each profiled on its own: SlicedWasserstein (10 slices, with
+                derivatives) and the Gaussian Sinkhorn (250 steps) between the
+                800x600 fingerprints (3 calls each), Sinkhorn_MS (5001 steps)
+                and sinkhorn_log (500 steps) at the 40x120 grid (1 call each),
 
 warms up, then runs the calls under torch.profiler and prints, per call:
 
   - the host-clock time (synchronized) and the device busy time, i.e. the
     union of the device-side intervals, with their ratio (busy share);
-  - the device operations (kernels, memsets, copies) and cudaLaunchKernel
-    calls;
+  - the device operations (kernels, memsets, copies) and kernel launch
+    calls (cudaLaunchKernel, and cuLaunchKernel, which cuBLAS uses);
   - the device operations with the most time, each with its share of the
     busy time.
 
@@ -48,12 +53,15 @@ import torch
 from torch.autograd import DeviceType
 
 from chip_smoke import (
-    DM, NR_STUDY, build_layered_problem, build_loc64_problem, scan_axes, scan_nodes,
-    study_starts,
+    DM, NR_STUDY, RF_LAMBDA, RF_SHIFT, SINKHORN_ITERS, SINKHORN_SIGMA_PX, TOOLBOX_NPROJ,
+    build_layered_problem, build_loc64_problem, fingerprint_pdfs, migration_waveforms,
+    rf_grid6, rf_waveform, scan_axes, scan_nodes, study_starts,
 )
 
-WORKLOADS = ("loc64", "scan", "study", "layered", "layered_scan", "layered_ms")
+WORKLOADS = ("loc64", "scan", "study", "layered", "layered_scan", "layered_ms", "toolbox")
 KERNEL = "distance_field_kernel"
+# launch calls of the CUDA runtime and of the cu* API (which cuBLAS uses)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 def _busy_us(intervals) -> float:
@@ -148,6 +156,32 @@ def stage_breakdown(dev, sources, smi: str):
                                   f"({100 * kern / busy:.1f}%)" if kern else ""))
 
 
+def toolbox_workloads(dev):
+    """[(call, warm-up calls, profiled calls, description)] of phase 12's
+    sliced and Sinkhorn calls, as chip_smoke.toolbox_phase makes them."""
+    from waveform_ot_torch import compat
+    from waveform_ot_torch.ops.sinkhorn import sinkhorn_log
+
+    t, rf = rf_waveform()
+    _, rfd = rf_waveform(RF_SHIFT)
+    fps = fingerprint_pdfs(t, [rfd, rf], rf_grid6(), RF_LAMBDA, dev)
+    src, tgt = (compat.OTpdf((w.pdf, w.pos), dev) for w in fps)
+    tm, wpred, wobs, grid = migration_waveforms()
+    msrc, mtgt = (compat.OTpdf((w.pdf, w.pos), dev)
+                  for w in fingerprint_pdfs(tm, [wpred, wobs], grid, 0.04, dev))
+    return [
+        (lambda: compat.SlicedWasserstein(src, tgt, TOOLBOX_NPROJ, derivatives=True), 1, 3,
+         f"SlicedWasserstein({TOOLBOX_NPROJ}, derivatives) 800x600 f64"),
+        (lambda: compat.Sinkhorn(src, tgt, gamma=SINKHORN_SIGMA_PX, iter=SINKHORN_ITERS), 1,
+         3, f"Gaussian Sinkhorn sigma {SINKHORN_SIGMA_PX:g} px, {SINKHORN_ITERS} steps, "
+            f"800x600 f64"),
+        (lambda: compat.Sinkhorn_MS(msrc, mtgt), 1, 1,
+         "Sinkhorn_MS 5001 steps, 4,800 points f64"),
+        (lambda: sinkhorn_log(msrc.density, mtgt.density, iters=500), 1, 1,
+         "sinkhorn_log 500 steps, 4,800 points f64"),
+    ]
+
+
 def workload(name: str, dev):
     """(call, warm-up calls, profiled calls, description) of the workload."""
     from waveform_ot_torch.inversion import (
@@ -186,7 +220,21 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    call, warm, calls, what = workload(args.workload, torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    runs = (toolbox_workloads(dev) if args.workload == "toolbox"
+            else [workload(args.workload, dev)])
+    tables = [profile(*run, smi) for run in runs]
+    if args.workload.startswith("layered"):
+        stage_breakdown(dev, layered_workload(args.workload, dev)[4], smi)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n\n".join(tables))
+    return 0
+
+
+def profile(call, warm: int, calls: int, what: str, smi: str) -> str:
+    """Profile ``calls`` calls after ``warm`` warm-up calls, print the
+    summary lines and return the profiler's full table."""
     for _ in range(warm):
         call()
     torch.cuda.synchronize()
@@ -205,7 +253,7 @@ def main() -> int:
         raise RuntimeError("the profiler recorded no device time")
     busy_ms = _busy_us((e.time_range.start, e.time_range.end) for e in dev_ev) / 1e3
     busy_ms /= calls
-    launches = sum(e.name == "cudaLaunchKernel" for e in events) / calls
+    launches = sum(e.name in LAUNCH_CALLS for e in events) / calls
     by_name = collections.Counter()
     count = collections.Counter()
     for e in dev_ev:
@@ -217,18 +265,12 @@ def main() -> int:
     print(f"[profile] {what}, {calls} calls under the profiler: "
           f"{wall_ms:.4f} ms/call host clock, device busy {busy_ms:.4f} ms/call "
           f"({100 * busy_ms / wall_ms:.1f}% busy), {len(dev_ev) / calls:g} device "
-          f"ops and {launches:g} cudaLaunchKernel per call")
+          f"ops and {launches:g} kernel launch calls per call")
     for name, us in by_name.most_common(15):
         print(f"[profile] {100 * us / total_us:5.1f}%  {us / calls:8.2f} us/call  "
               f"x{count[name] / calls:g}  {name[:110]}")
-    if args.workload.startswith("layered"):
-        stage_breakdown(torch.device("cuda", 0),
-                        layered_workload(args.workload, torch.device("cuda", 0))[4], smi)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                              row_limit=200))
-    return 0
+    return f"{what}\n" + prof.key_averages().table(sort_by="self_device_time_total",
+                                                   row_limit=200)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """The port's CUDA kernel against its plain PyTorch version, and the paths
-that launch it, on the card.
+that launch it, on the card; the OT toolbox on the card against the CPU.
 
 Every test here needs a CUDA card and nvcc and skips without them. The file
 imports no JAX, so it also runs where only PyTorch is installed:
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_fields
+from chip_smoke import _nested_dev, compare_fields
 from waveform_ot_torch.inversion import InvOptions, loc_cmt_value_and_grad
 from waveform_ot_torch.ops import cuda_distance
 from waveform_ot_torch.ops import fingerprint as tfp
@@ -361,3 +361,104 @@ def test_layered_forward_of_64_sources_equals_single_calls():
         for i in range(64):
             u1 = fwd(xyz[i, 0], xyz[i, 1], xyz[i, 2], mm[i])
             assert (u[i] - u1).abs().max() <= 1e-10 * u1.abs().max(), i
+
+
+def _rf_fingerprints(dev, nt=120, nu=60, ntg=80):
+    """The fingerprints (pdf, pos) of a waveform and its delayed copy
+    (predicted, observed), computed on ``dev``, and the observed waveformFP."""
+    from waveform_ot_torch import compat
+
+    t = np.linspace(0.0, 1.0, nt)
+    waves = [2 * np.sin((t - s) * 6 * np.pi) - 3 * np.cos((2 * (t - s) + 0.3) * 2 * np.pi)
+             for s in (0.02, 0.0)]
+    grid = (0.0, 1.0, -6.5, 6.5, nu, ntg)
+    fps = []
+    for w in waves:
+        wf = compat.waveformFP(t, w, grid, device=dev)
+        wf.calcpdf(lambdav=0.04)
+        fps.append(wf)
+    return [(wf.pdf, wf.pos) for wf in fps], fps[1]
+
+
+def test_calcpdf_launches_the_kernel_once_and_matches_the_plain_field():
+    from waveform_ot_torch.ops.fingerprint import grid_axes
+
+    before = cuda_distance.LAUNCHES
+    _, wf = _rf_fingerprints("cuda")
+    assert cuda_distance.LAUNCHES == before + 2        # one per calcpdf
+    tg, ug = grid_axes(wf._t, wf._win, wf._spec)
+    plain = tfp.distance_field_torch(wf._pn[None].contiguous(), tg[None].contiguous(),
+                                     ug[None].contiguous())
+    for x, y in zip(wf._fld, plain):
+        assert torch.equal(x, y[0])
+
+
+def test_toolbox_on_card_matches_cpu():
+    """Marginal and sliced Wasserstein (closed forms: 1e-9 relative) and the
+    dense Sinkhorn (iterated: 1e-8), card vs CPU on the card's fingerprints,
+    chip_smoke.py phase 12's bars."""
+    from waveform_ot_torch import compat
+
+    fps, _ = _rf_fingerprints("cuda")
+    card = [compat.OTpdf(fp, "cuda") for fp in fps]
+    cpu = [compat.OTpdf(fp, "cpu") for fp in fps]
+    calls = [
+        (lambda s, o: compat.MargWasserstein(s, o, derivatives=True, returnmargW=True), 1e-9),
+        (lambda s, o: compat.SlicedWasserstein(s, o, 10, derivatives=True), 1e-9),
+        (lambda s, o: compat.Sinkhorn_MS(s, o, gamma=2e-3, maxiters=300), 1e-8),
+    ]
+    for call, tol in calls:
+        assert _nested_dev(call(*card), call(*cpu)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gaussian_filter_ignores_the_tf32_switches(dtype):
+    """The blur is float64 band-matrix products: neither cuDNN's nor
+    cuBLAS's TF32 switch changes a bit of it."""
+    from waveform_ot_torch.ops.sinkhorn import gaussian_filter
+
+    img = torch.rand(300, 200, dtype=dtype, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(3))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    out = []
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = flag
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            out.append(gaussian_filter(img, 6.5))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(out[0], out[1])
+    ref = gaussian_filter(img.cpu().double(), 6.5).numpy()
+    assert _nested_dev(out[0].double().cpu().numpy(), ref) <= (
+        1e-12 if dtype == torch.float64 else 1e-6)
+
+
+@pytest.mark.parametrize("chunk", [None, 1 << 12])
+def test_distance_field_nn_on_card_equals_cpu(monkeypatch, chunk):
+    """The vertex-NN field, chunked over grid points, and NNsearch's
+    refinement (ni=2): winners, lam and offsets equal the CPU's bit for bit.
+    d is sqrt(dsq) of the same dsq: on the card exactly NumPy's correctly
+    rounded square root; the CPU's float64 torch.sqrt (its AVX-512 path) is
+    not correctly rounded and may sit one ulp away."""
+    from waveform_ot_torch import compat
+
+    if chunk is not None:
+        monkeypatch.setattr(tfp, "_PAIRS_PER_CHUNK", chunk)
+    args = _inputs(3, 90, 41, 57, torch.float64, seed=9)
+    got = tfp.distance_field_nn(*args)
+    ref = tfp.distance_field_nn(*(a.cpu() for a in args))
+    for x, y in zip(got[1:], ref[1:]):
+        assert torch.equal(x.cpu(), y)
+    dvec = ref.dvec.numpy()
+    d = got.d.cpu().numpy()
+    np.testing.assert_array_equal(d, np.sqrt(dvec[..., 0] * dvec[..., 0]
+                                             + dvec[..., 1] * dvec[..., 1]))
+    np.testing.assert_allclose(d, ref.d.numpy(), rtol=np.finfo(np.float64).eps, atol=0)
+    t = np.linspace(0.0, 1.0, 90)
+    w = np.sin(9 * t)
+    nn = [compat.NNsearch(compat.waveformFP(t, w, (0.0, 1.0, -1.3, 1.3, 41, 57), device=d),
+                          ni=2) for d in ("cuda", "cpu")]
+    np.testing.assert_allclose(nn[0][0], nn[1][0], rtol=np.finfo(np.float64).eps, atol=0)
+    for x, y in zip(nn[0][1:], nn[1][1:]):
+        np.testing.assert_array_equal(x, y)

@@ -1,8 +1,8 @@
 """Carry problem objects of the JAX package over to the port's tensors.
 
 The JAX package's ``LocCMTProblem``, ``RickerProblem`` (with their
-``Window``, ``Targets``/``Density1D``, ``StationSet`` and ``MediumConfig``)
-and ``LayeredModel``
+``Window``, ``Targets``/``Density1D``, ``StationSet`` and ``MediumConfig``),
+``LayeredModel``, ``Density1D``/``Density2D`` and ``SlicedProjections``
 are read by field name, array by array through numpy, so this module never
 imports JAX. Each array becomes a tensor on ``device``; floating arrays
 take ``dtype``. The device is the card unless the caller names another.
@@ -19,7 +19,8 @@ from waveform_ot_torch.inversion.pipeline import Targets
 from waveform_ot_torch.models.layered import LayeredModel
 from waveform_ot_torch.models.seismo import MediumConfig, StationSet
 from waveform_ot_torch.ops.fingerprint import Window
-from waveform_ot_torch.ops.otpdf import Density1D
+from waveform_ot_torch.ops.otpdf import Density1D, Density2D
+from waveform_ot_torch.ops.sliced import SlicedProjections
 
 
 def tensor(a, device="cuda", dtype=torch.float64) -> torch.Tensor:
@@ -74,3 +75,20 @@ def ricker_problem(prob, device="cuda", dtype=torch.float64) -> RickerProblem:
 def layered_model(model, device="cuda", dtype=torch.float64) -> LayeredModel:
     """The port's LayeredModel from the JAX package's."""
     return _fields(LayeredModel, model, device, dtype)
+
+
+def density_1d(obj, device="cuda", dtype=torch.float64) -> Density1D:
+    """The port's Density1D from the JAX package's, unbatched as it is."""
+    return _fields(Density1D, obj, device, dtype)
+
+
+def density_2d(obj, device="cuda", dtype=torch.float64) -> Density2D:
+    """The port's Density2D from the JAX package's."""
+    return _fields(Density2D, obj, device, dtype)
+
+
+def sliced_projections(obj, device="cuda", dtype=torch.float64) -> SlicedProjections:
+    """The port's SlicedProjections from the JAX package's; the sort
+    permutations become int64."""
+    pr = _fields(SlicedProjections, obj, device, dtype)
+    return pr._replace(psorted=pr.psorted.long())

@@ -1,4 +1,5 @@
-"""Forward models: Ricker wavelets, far-field and layered-medium seismograms."""
+"""Forward models: Ricker wavelets, far-field and layered-medium seismograms,
+Gaussian-process noise."""
 
 from waveform_ot_torch.models.ricker import (  # noqa: F401
     ricker, ricker_wavelet, ricker_wavelet_with_jacobian,
@@ -11,4 +12,7 @@ from waveform_ot_torch.models.layered import (  # noqa: F401
     LayeredModel, bessel_j0123, fukuoka_model, layered_model_from_table,
     layered_seismograms, make_layered_forward, make_layered_stages,
     uniform_model, wholespace_seismograms,
+)
+from waveform_ot_torch.models.gp_noise import (  # noqa: F401
+    correlated_noise, covariance, create_curve,
 )

@@ -64,6 +64,17 @@ def make_window(t0, t1, u0, u1, theta: float | None = None,
     return Window(arr(t0), arr(t1), arr(u0), arr(u1), arr(tantheta))
 
 
+def window_from_waveform(t, w, pad: float = 0.3) -> Window:
+    """Auto window of waveforms w (..., nt) on times t (..., nt): the time
+    span, and the amplitude range padded by ``pad`` times itself on both
+    sides (pad 0.3 as loc_cmt_util.buildFingerprintwindows, 0.2 as
+    ricker_util.BuildOTobjfromWaveform). Fields are (...,), on w's device."""
+    lo, hi = w.amin(dim=-1), w.amax(dim=-1)
+    du = hi - lo
+    return make_window(t.amin(dim=-1), t.amax(dim=-1), lo - pad * du, hi + pad * du,
+                       dtype=w.dtype, device=w.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class FingerprintSpec:
     """Static grid dimensions along the amplitude (nu) and time (ntg) axes."""
@@ -106,16 +117,26 @@ def normalize_vertices(t, w, win: Window) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(tn, wn), dim=-1)
 
 
-def grid_axes(t, win: Window, spec: FingerprintSpec):
-    """Normalized grid axes (tgrid (..., ntg), ugrid (..., nu)): the time
-    axis spans the waveform's normalized time range and the amplitude axis
-    spans (0, 1).
+def grid_axes(t, win: Window, spec: FingerprintSpec, fpbox=None):
+    """Normalized grid axes (tgrid (..., ntg), ugrid (..., nu)).
+
+    By default the time axis spans the waveform's normalized time range and
+    the amplitude axis spans (0, 1). ``fpbox`` = (fp_t0, fp_t1, fp_u0,
+    fp_u1) in physical coordinates gives the box instead, normalized by the
+    window (the reference's fpgrid).
     """
     delt = win.tantheta * (win.t1 - win.t0)
-    tlo = (t[..., 0] - win.t0) / delt
-    thi = (t[..., -1] - win.t0) / delt
-    return (linspace(tlo, thi, spec.ntg),
-            linspace(torch.zeros_like(tlo), torch.ones_like(tlo), spec.nu))
+    if fpbox is None:
+        tlo = (t[..., 0] - win.t0) / delt
+        thi = (t[..., -1] - win.t0) / delt
+        ulo, uhi = torch.zeros_like(tlo), torch.ones_like(tlo)
+    else:
+        fp_t0, fp_t1, fp_u0, fp_u1 = fpbox
+        tlo = (fp_t0 - win.t0) / delt
+        thi = (fp_t1 - win.t0) / delt
+        ulo = (fp_u0 - win.u0) / (win.u1 - win.u0)
+        uhi = (fp_u1 - win.u0) / (win.u1 - win.u0)
+    return linspace(tlo, thi, spec.ntg), linspace(ulo, uhi, spec.nu)
 
 
 # ---------------------------------------------------------------------------
@@ -258,16 +279,121 @@ def density_from_distance(d, lambdav, q: int | None = None) -> torch.Tensor:
 
 
 def fingerprint_density(t, w, win: Window, spec: FingerprintSpec,
-                        lambdav: float = 0.04, q: int | None = None):
+                        lambdav: float = 0.04, q: int | None = None, fpbox=None):
     """Waveforms (B, nt) -> fingerprint densities (B, nu, ntg).
 
     Returns (pdf2d, (tgrid (B, ntg), ugrid (B, nu))). Gradients flow to
     ``w``, ``t`` and every Window field through the envelope backward.
+    ``fpbox`` is passed to :func:`grid_axes`.
     """
     verts = normalize_vertices(t, w, win)
-    tgrid, ugrid = grid_axes(t, win, spec)
+    tgrid, ugrid = grid_axes(t, win, spec, fpbox=fpbox)
     bsz = verts.shape[0]
     tgrid = tgrid.expand(bsz, spec.ntg)
     ugrid = ugrid.expand(bsz, spec.nu)
     d = distance_field_diff(verts, tgrid, ugrid)
     return density_from_distance(d, lambdav, q=q), (tgrid, ugrid)
+
+
+# ---------------------------------------------------------------------------
+# point queries and the vertex-NN field (reference utilities)
+# ---------------------------------------------------------------------------
+
+
+def _segment_terms(c, lsq, b):
+    """(dsq, lam, ds) of offsets b = p - x0 from segments (x0, c) with
+    |c|^2 = lsq: lam = clip(b.c / lsq, 0, 1), ds = b - lam c, as the JAX
+    module's point queries write it (a division, where the distance field
+    multiplies by 1/|c|^2)."""
+    lam = torch.clamp((b[..., 0] * c[..., 0] + b[..., 1] * c[..., 1]) / lsq, 0.0, 1.0)
+    ds = b - c * lam[..., None]
+    return ds[..., 0] * ds[..., 0] + ds[..., 1] * ds[..., 1], lam, ds
+
+
+def nearest_segment(verts, points):
+    """(dsq, iclose, lam) of the nearest polyline segment to each point.
+
+    verts (..., nt, 2), points (..., k, 2) -> (..., k) each; iclose is the
+    first minimum (np.argmin ties). Chunked over points, so the (chunk,
+    nseg) temporaries stay within _PAIRS_PER_CHUNK pairs.
+    """
+    x0 = verts[..., :-1, :]
+    c = verts[..., 1:, :] - x0
+    lsq = c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]
+    x0, c, lsq = x0[..., None, :, :], c[..., None, :, :], lsq[..., None, :]
+    nseg = c.shape[-2]
+    k = points.shape[-2]
+    nb = max(1, points[..., 0, 0].numel())
+    chunk = max(1, _PAIRS_PER_CHUNK // (nb * nseg))
+    dsq, iclose, lam = [], [], []
+    for k0 in range(0, k, chunk):
+        b = points[..., k0:k0 + chunk, None, :] - x0            # (..., c, nseg, 2)
+        dq, lm, _ = _segment_terms(c, lsq, b)
+        idx = torch.argmin(dq, dim=-1, keepdim=True)           # first minimum
+        dsq.append(torch.gather(dq, -1, idx)[..., 0])
+        lam.append(torch.gather(lm, -1, idx)[..., 0])
+        iclose.append(idx[..., 0])
+    return torch.cat(dsq, -1), torch.cat(iclose, -1), torch.cat(lam, -1)
+
+
+def nearest_vertex(verts, points) -> torch.Tensor:
+    """Index (..., k) of the nearest vertex of verts (..., nv, 2) to each of
+    points (..., k, 2), the first minimum of the squared distance; chunked
+    over points within _PAIRS_PER_CHUNK point-vertex pairs."""
+    nb = max(1, points[..., 0, 0].numel())
+    chunk = max(1, _PAIRS_PER_CHUNK // (nb * verts.shape[-2]))
+    out = []
+    for k0 in range(0, points.shape[-2], chunk):
+        dv = points[..., k0:k0 + chunk, None, :] - verts[..., None, :, :]   # (..., c, nv, 2)
+        out.append(torch.argmin(dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1], dim=-1))
+    return torch.cat(out, dim=-1)
+
+
+def point_distance(verts, points) -> torch.Tensor:
+    """Nearest distance (..., k) from points (..., k, 2) to the polyline
+    verts (..., nt, 2) (the reference's wavedist/wavedistv)."""
+    return torch.sqrt(nearest_segment(verts, points)[0])
+
+
+def resolve_adjacent(verts, points, segp, segm):
+    """The nearer of two candidate segments of the polyline verts (..., nt, 2)
+    for each of points (..., k, 2): segp and segm (..., k) index segments
+    (the two adjacent to a nearest vertex). Returns (dsq, iclose, lam, ds),
+    each (..., k) (ds (..., k, 2)); ties keep segm, the lower segment, as
+    the reference does."""
+    x0 = verts[..., :-1, :]
+    c = verts[..., 1:, :] - x0
+    lsq = c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]
+
+    def terms(seg):
+        rows = seg[..., None].expand(seg.shape + (2,))
+        return _segment_terms(torch.gather(c, -2, rows), torch.gather(lsq, -1, seg),
+                              points - torch.gather(x0, -2, rows))
+
+    dp, lamp, dsp = terms(segp)
+    dm, lamm, dsm = terms(segm)
+    take_p = dp < dm
+    return (torch.where(take_p, dp, dm), torch.where(take_p, segp, segm),
+            torch.where(take_p, lamp, lamm), torch.where(take_p[..., None], dsp, dsm))
+
+
+def distance_field_nn(verts, tgrid, ugrid) -> DistanceField:
+    """Vertex-NN distance field (the reference's wdistNN): the nearest
+    polyline *vertex* of each grid point (first minimum), then the nearer
+    of its two adjacent segments (ties keep the lower segment).
+
+    verts (B, nt, 2), tgrid (B, ntg), ugrid (B, nu) -> fields (B, nu, ntg).
+    It differs from :func:`distance_field` only where the true nearest
+    segment is not adjacent to the nearest vertex. The vertex search is
+    chunked over grid points (within _PAIRS_PER_CHUNK point-vertex pairs).
+    """
+    bsz, nt, _ = verts.shape
+    nu, ntg = ugrid.shape[-1], tgrid.shape[-1]
+    p = torch.stack([tgrid[:, None, :].expand(bsz, nu, ntg),
+                     ugrid[:, :, None].expand(bsz, nu, ntg)], dim=-1).reshape(bsz, nu * ntg, 2)
+    ivert = nearest_vertex(verts, p)
+    dsq, iclose, lam, ds = resolve_adjacent(verts, p, torch.clamp(ivert, 0, nt - 2),
+                                            torch.clamp(ivert - 1, 0, nt - 2))
+    shape = (bsz, nu, ntg)
+    return DistanceField(torch.sqrt(dsq).reshape(shape), iclose.to(torch.int32).reshape(shape),
+                         lam.reshape(shape), ds.reshape(shape + (2,)))
