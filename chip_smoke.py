@@ -78,6 +78,26 @@ is non-zero:
                 call on the CPU's inputs and fingerprints (closed forms 1e-9
                 relative, Sinkhorns 1e-8); a host-clock median per call; the
                 blur's band products against conv1d at 1 and 64 px.
+ 13. drivers    the reference's two inversion drivers (Ricker_Figs_3_8,
+                Figs 9-12) through compat_ricker and compat_loc_cmt, float64,
+                NumPy in and out (drivers_phase). 13a, compat_ricker at
+                Ricker_Figs_3_8's settings (40x128 grid, lambda 0.03, arctan
+                transform, alpha 0.5): one optfunc value+grad on the card
+                within 1e-10 of the CPU's, one kernel launch per call, then
+                scipy L-BFGS-B from the same x on the card and on the CPU:
+                within 0.02 of (0, 1.6, 1), within 1e-6 of each other in as
+                many iterations. 13b, compat_loc_cmt at Figs 9-12's width
+                (Fukuoka, 11 stations, nt 61, nk 1024, 79x61 windows, Wavg W2,
+                lambda 0.04): prop8seis with drv loc, mt and full, cartesian
+                and spherical, optfunc_OT and optfunc_L2 at LOC + DM, card
+                against CPU; Moment_LS at LOC; a loc-only scipy L-BFGS-B
+                inversion from LOC + DM on the card ending within 1 km of LOC.
+                Every kernel launch of the phase outside its timing runs
+                (the 40x128 and 79x61 single-trace fingerprints) is held bit
+                for bit against distance_field_torch on its own card inputs
+                (held_launches). Launches per call counted and asserted (0
+                per prop8seis, one per trace per optfunc_OT), in the timing
+                runs too; a host-clock median per call.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -86,6 +106,7 @@ printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -189,6 +210,27 @@ PDF_ATOL = 1e-12                 # calcpdf's pdf, card vs CPU
 POS_ATOL = 1e-15
 CHAIN_RTOL = 1e-8                # PDFderivMarg vs autograd
 TOOLBOX_TIMED = 5                # host-clock median of 5 (Sinkhorns: 3)
+# phase 13: the reference's two inversion workflows through compat_ricker and
+# compat_loc_cmt. 13a at Ricker_Figs_3_8's settings (tests/test_compat_l3.py:84-96)
+DRIVER_RICKER_GRID = (-2.0, 7.0, -2.0, 2.6, 40, 128)
+DRIVER_RICKER_TRANGE = (-2.0, 7.0)
+DRIVER_RICKER_LAMBDA = 0.03
+DRIVER_RICKER_X = (0.25, 1.45, 1.08)
+DRIVER_RICKER_ATOL = 1e-10     # one optfunc value and gradient, card vs CPU
+# 13b at Figs 9-12's width: Fukuoka, NR_STUDY stations on the 60 km circle, nt 61,
+# compat's quadrature defaults (nk 1024, kmax 2.5); strike/dip/rake 30/60/45 and
+# the M0 5e6 of build_layered_problem, given in Nm as prop8data wants it
+DRIVER_SDRM = (30.0, 60.0, 45.0, 5.0e6 / 1.0e-13)
+DRIVER_LAMBDA = 0.04
+# Card vs CPU of compat_loc_cmt's seismograms, Jacobian channels, misfits and
+# gradients. The omega = 0 lane of the stack recursion (the note above
+# SEIS_TOL_F64) moves float64 results by ~1e-8 between the card and the CPU, so
+# the bars are phase 9's f64 ones and not the 1e-9 of the CPU parity tests,
+# which hold JAX and the port at a damping where the lane is well conditioned.
+DRIVER_F64_TOL = SEIS_TOL_F64
+DRIVER_MLS_RTOL = 1e-6         # Moment_LS at the source of noiseless data
+DRIVER_LOC_KM = 1.0            # the loc-only scipy inversion's end point
+DRIVER_TIMED = 5               # host-clock median of 5 per call
 
 
 def build_loc64_problem(nr: int, dtype, device):
@@ -535,6 +577,40 @@ def host_median_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def held_launches(phase: str):
+    """Every launch of the distance-field kernel inside the block held field
+    for field against its plain version on the same card inputs: d, iclose,
+    lam and dvec must equal distance_field_torch's bit for bit, or the launch
+    raises. Yields {"shapes": {(B, nt, nu, ntg, dtype): launches held},
+    "check_s": host seconds the checks took}."""
+    from waveform_ot_torch.ops import cuda_distance, distance_field_torch
+
+    real = cuda_distance.distance_field_cuda
+    held = {"shapes": {}, "check_s": 0.0}
+
+    def checked(verts, tgrid, ugrid):
+        out = real(verts, tgrid, ugrid)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            plain = distance_field_torch(verts, tgrid, ugrid)
+        same = [torch.equal(a, b) for a, b in zip(out, plain)]
+        key = (*verts.shape[:2], ugrid.shape[1], tgrid.shape[1], str(verts.dtype)[6:])
+        if not all(same):
+            raise AssertionError(f"{phase}: the kernel's launch at (B, nt, nu, ntg, dtype) "
+                                 f"{key} differs from distance_field_torch on its inputs "
+                                 f"(d, iclose, lam, dvec equal: {same})")
+        held["shapes"][key] = held["shapes"].get(key, 0) + 1
+        held["check_s"] += time.perf_counter() - t0
+        return out
+
+    cuda_distance.distance_field_cuda = checked
+    try:
+        yield held
+    finally:
+        cuda_distance.distance_field_cuda = real
 
 
 def _rel(a, b) -> float:
@@ -996,6 +1072,234 @@ def toolbox_phase(dev, card: str) -> tuple[dict, dict]:
     return {"toolbox": launches}, {"toolbox_calcpdf": 1}
 
 
+def drivers_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 13: the reference's two inversion drivers through compat_ricker
+    and compat_loc_cmt, on the card through their entry points, float64, each
+    single call held against the same call on the CPU, each inversion by its
+    end point, and every kernel launch outside the timing runs held bit for
+    bit against the plain field on its own card inputs (held_launches).
+    Returns the kernel launches of the two inversions and the launches per
+    call of each entry point, as counted."""
+    import scipy.optimize
+
+    from waveform_ot_torch import compat_loc_cmt as lc
+    from waveform_ot_torch import compat_ricker as ru
+    from waveform_ot_torch.models.seismo import moment_tensor_from_sdr, upper_from_mxyz
+    from waveform_ot_torch.ops import cuda_distance
+
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    launches, per_call = {}, {}
+    n_counted = [0]
+
+    def counted(fn, want=None, what=""):
+        """fn() with the kernel's launch count set to 0 just before and read
+        just after: (result, launches); raises unless launches == want, when
+        given."""
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = cuda_distance.LAUNCHES
+        n_counted[0] += n
+        if want is not None and n != want:
+            raise AssertionError(f"{what}: {n} kernel launches, not {want}")
+        return out, n
+
+    def hold(name, dev_, bound):
+        print(f"[drivers] {name}: {dev_:.3e} (bound {bound:g})")
+        if not dev_ <= bound:
+            raise AssertionError(f"drivers {name}: {dev_!r} exceeds {bound:g}")
+
+    def timed(name, fn, want):
+        """Host-clock median of fn(); the launches counted over every call of
+        the timing, the warm-up included, must be ``want`` per call."""
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        ms = host_median_ms(fn, n=DRIVER_TIMED, warm=1)
+        torch.cuda.synchronize()
+        n = cuda_distance.LAUNCHES / (DRIVER_TIMED + 1)
+        print(f"[timing] drivers {name}: {ms:.4f} ms/call (host clock, synchronized, median "
+              f"of {DRIVER_TIMED}), kernel launches per call {n:g} (counted over the "
+              f"{DRIVER_TIMED + 1} calls) {card}")
+        if n != want:
+            raise AssertionError(f"{name}: {n} kernel launches per timed call, not {want}")
+
+    def ricker_data(device):
+        t, w = ru.rickerwavelet(*RICKER_TRUTH, trange=DRIVER_RICKER_TRANGE, device=device)
+        _, obs = ru.BuildOTobjfromWaveform(t, w, DRIVER_RICKER_GRID,
+                                           lambdav=DRIVER_RICKER_LAMBDA, transform=True,
+                                           device=device)
+        return [obs, "W2", DRIVER_RICKER_TRANGE, DRIVER_RICKER_GRID, DRIVER_RICKER_LAMBDA,
+                True, 0.5, 45.0]
+
+    with held_launches("drivers") as held:
+        # 13a. Ricker_Figs_3_8 through compat_ricker.optfunc
+        rdata = {"card": counted(lambda: ricker_data(dev), 1, "the observed fingerprint")[0],
+                 "cpu": ricker_data(cpu)}
+        x0 = np.asarray(DRIVER_RICKER_X)
+        ru.init()
+        (w_card, g_card), n = counted(lambda: ru.optfunc(x0, rdata["card"]))
+        w_cpu, g_cpu = ru.optfunc(x0, rdata["cpu"])
+        print(f"[drivers] compat_ricker.optfunc at {x0.tolist()} on the card: w2 {w_card!r} "
+              f"grad {g_card.tolist()}, kernel launches {n}; on the cpu: w2 {w_cpu!r}")
+        if n != 1 or len(ru.Wdata) != 2 or not np.all(np.isfinite(g_card)):
+            raise AssertionError(f"compat_ricker.optfunc: {n} kernel launches, "
+                                 f"{len(ru.Wdata)} records, gradient {g_card}")
+        hold("compat_ricker.optfunc card vs cpu, value, abs", abs(w_card - w_cpu),
+             DRIVER_RICKER_ATOL)
+        hold("compat_ricker.optfunc card vs cpu, gradient, max abs",
+             float(np.abs(g_card - g_cpu).max()), DRIVER_RICKER_ATOL)
+        per_call["ricker_driver_optfunc"] = n
+        inv = {}
+        for where in ("card", "cpu"):
+            ru.init()
+            t0, c0 = time.perf_counter(), held["check_s"]
+            inv[where], n = counted(lambda: scipy.optimize.minimize(
+                ru.optfunc, x0, args=(rdata[where],), jac=True, method="L-BFGS-B"))
+            wall = (time.perf_counter() - t0 - (held["check_s"] - c0)) * 1e3
+            res = inv[where]
+            print(f"[drivers] compat_ricker scipy L-BFGS-B on the {where}: x {res.x.tolist()} "
+                  f"after {res.nit} iterations, {res.nfev} evaluations ({len(ru.Wdata)} Wdata "
+                  f"records), w2 {res.fun!r}, kernel launches {n}, {wall:.1f} ms (host clock, "
+                  f"one run, the launch checks' time taken out), scipy: {res.message!r} {card}")
+            if where == "card":
+                launches["ricker_driver"] = n
+                if n != res.nfev or len(ru.Wdata) != res.nfev:
+                    raise AssertionError(f"{n} launches and {len(ru.Wdata)} records for "
+                                         f"{res.nfev} evaluations")
+        hold("compat_ricker inversion on the card, max |x - truth|",
+             float(np.abs(inv["card"].x - np.asarray(RICKER_TRUTH)).max()), RICKER_TRUTH_TOL)
+        hold("compat_ricker inversion card vs cpu, max |x diff|",
+             float(np.abs(inv["card"].x - inv["cpu"].x).max()), RICKER_X_TOL)
+        if inv["card"].nit != inv["cpu"].nit:
+            raise AssertionError(f"the card's inversion took {inv['card'].nit} iterations, the "
+                                 f"cpu's {inv['cpu'].nit}")
+        ru.init()
+
+        # 13b. Figs 9-12 through compat_loc_cmt
+        ang = np.linspace(0, 2 * np.pi, NR_STUDY, endpoint=False)
+        p8 = {"sdrm": DRIVER_SDRM, "recx": 60.0 * np.cos(ang), "recy": 60.0 * np.sin(ang),
+              "model": None}
+        prop8_launches = set()
+        (t, seis), n = counted(lambda: lc.prop8seis(*LOC, p8, device=dev))
+        prop8_launches.add(n)
+        _, seis_cpu = lc.prop8seis(*LOC, p8, device=cpu)
+        if seis.shape != (NR_STUDY, 3, NT) or not np.all(np.isfinite(seis)):
+            raise AssertionError(f"prop8seis gave {seis.shape} seismograms")
+        hold("prop8seis at LOC card vs cpu, of the peak", _nested_dev(seis, seis_cpu),
+             DRIVER_F64_TOL)
+        p8["obs_seis"] = seis
+        grids = lc.buildFingerprintwindows(t, seis, device=dev)
+        if {(g[4], g[5]) for row in grids for g in row} != {(79, NT)}:
+            raise AssertionError(f"fingerprint windows are not 79x{NT}: {grids[0][0]}")
+        ot = {"Wopt": "Wavg", "distfunc": "W2", "plambda": DRIVER_LAMBDA, "theta": 45.0,
+              "obs_grids": grids,
+              "obs_grids01": [[g[:2] + [0.0, 1.0] + g[4:] for g in row] for row in grids]}
+        invopt = {"loc": True, "cmt": False, "mistype": "OT", "precon": False,
+                  "mscal": np.ones(3), "mref": np.zeros(3)}
+
+        def loc_data(device):
+            wfo, tgt = lc.BuildOTobjfromWaveform(t, seis, grids, ot, lambdav=DRIVER_LAMBDA,
+                                                 device=device)
+            return {"invopt": invopt, "prop8data": p8, "device": device,
+                    "OTdata": dict(ot, wfobs=wfo, wfobs_target=tgt)}
+
+        ldata = {"card": counted(lambda: loc_data(dev), NR_STUDY * 3,
+                                 "the observed fingerprints")[0],
+                 "cpu": loc_data(cpu)}
+        m0 = np.asarray(LOC) + np.asarray(DM)
+        for name, kw in (("loc cartesian", dict(x=True, y=True, z=True)),
+                         ("loc spherical", dict(r=True, phi=True, z=True)),
+                         ("mt", dict(moment_tensor=True)),
+                         ("full cartesian", dict(x=True, y=True, z=True, moment_tensor=True)),
+                         ("full spherical", dict(r=True, phi=True, z=True, moment_tensor=True))):
+            drv = lc.DerivativeSwitches(**kw)
+            (_, s_card, d_card), n = counted(lambda: lc.prop8seis(*m0, p8, drv=drv, device=dev))
+            prop8_launches.add(n)
+            _, s_c, d_c = lc.prop8seis(*m0, p8, drv=drv, device=cpu)
+            if d_card.shape != (NR_STUDY, drv.nderiv, 3, NT):
+                raise AssertionError(f"prop8seis drv {name}: {d_card.shape}")
+            cols = max(_nested_dev(d_card[:, c], d_c[:, c]) for c in range(drv.nderiv))
+            hold(f"prop8seis drv {name} at LOC + DM card vs cpu, seismograms of the peak",
+                 _nested_dev(s_card, s_c), DRIVER_F64_TOL)
+            hold(f"prop8seis drv {name} card vs cpu, worst of {drv.nderiv} channels, of the "
+                 f"channel's max", cols, DRIVER_F64_TOL)
+        print(f"[drivers] compat_loc_cmt.prop8seis kernel launches per call, over its 6 counted "
+              f"calls: {sorted(prop8_launches)}")
+        if prop8_launches != {0}:
+            raise AssertionError(f"prop8seis launched the kernel: {sorted(prop8_launches)}")
+        per_call["loc_cmt_driver_prop8seis"] = prop8_launches.pop()
+        for name, fn in (("optfunc_OT", lc.optfunc_OT), ("optfunc_L2", lc.optfunc_L2)):
+            data = {k: dict(ldata[k], invopt=dict(invopt, mistype=name[-2:])) for k in ldata}
+            (v_card, g_card), n = counted(lambda: fn(m0, data["card"]))
+            v_c, g_c = fn(m0, data["cpu"])
+            want = NR_STUDY * 3 if name == "optfunc_OT" else 0
+            print(f"[drivers] compat_loc_cmt.{name} loc-only at LOC + DM on the card: value "
+                  f"{v_card!r} grad {g_card.tolist()}, kernel launches {n}; on the cpu: value "
+                  f"{v_c!r} grad {g_c.tolist()}")
+            if n != want or not np.all(np.isfinite(g_card)):
+                raise AssertionError(f"{name}: {n} kernel launches (not {want}), grad {g_card}")
+            hold(f"{name} card vs cpu, value, relative", abs(v_card - v_c) / abs(v_c),
+                 VALUE_RTOL_F64)
+            hold(f"{name} card vs cpu, gradient, of max|g|", _nested_dev(g_card, g_c),
+                 GRAD_TOL_F64)
+            per_call[f"loc_cmt_driver_{name}"] = n
+        m6 = upper_from_mxyz(moment_tensor_from_sdr(*DRIVER_SDRM[:3], DRIVER_SDRM[3] * 1e-13,
+                                                    device=cpu)).numpy()
+        mls, n = counted(lambda: lc.Moment_LS(list(LOC), p8, device=dev))
+        print(f"[drivers] compat_loc_cmt.Moment_LS at LOC on the card: {mls.tolist()}, true "
+              f"{m6.tolist()}, kernel launches {n}")
+        hold("Moment_LS at LOC against the true moment tensor, of its max",
+             _nested_dev(mls, m6), DRIVER_MLS_RTOL)
+        lc.init()
+        t0, c0 = time.perf_counter(), held["check_s"]
+        res, n = counted(lambda: scipy.optimize.minimize(
+            lc.optfunc_OT, m0, args=(ldata["card"],), jac=True, method="L-BFGS-B"))
+        wall = (time.perf_counter() - t0 - (held["check_s"] - c0)) * 1e3
+        err = float(np.linalg.norm(res.x - np.asarray(LOC)))
+        launches["loc_cmt_driver"] = n
+        print(f"[drivers] compat_loc_cmt loc-only scipy L-BFGS-B on the card from LOC + DM: x "
+              f"{res.x.tolist()} after {res.nit} iterations, {res.nfev} evaluations "
+              f"({len(lc.opt_history_data)} records), misfit {res.fun!r}, {err:.6f} km from "
+              f"LOC, kernel launches {n}, {wall:.1f} ms (host clock, one run, the launch "
+              f"checks' time taken out), scipy: {res.message!r} {card}")
+        if n != NR_STUDY * 3 * res.nfev:
+            raise AssertionError(f"{n} kernel launches for {res.nfev} evaluations of "
+                                 f"{NR_STUDY * 3} traces")
+        hold("compat_loc_cmt inversion on the card, km from LOC", err, DRIVER_LOC_KM)
+        lc.init()
+    n_held = sum(held["shapes"].values())
+    print(f"[drivers] launches held bit for bit against distance_field_torch on their card "
+          f"inputs: {n_held}, of {n_counted[0]} counted outside the timing runs; by (B, nt, nu, "
+          f"ntg, dtype) {held['shapes']}; {held['check_s']:.2f} s of checks")
+    if n_held < n_counted[0]:
+        raise AssertionError(f"{n_counted[0] - n_held} of {n_counted[0]} counted launches "
+                             f"went past the check")
+
+    timed("compat_ricker.optfunc 40x128", lambda: ru.optfunc(x0, rdata["card"]),
+          per_call["ricker_driver_optfunc"])
+    ru.init()
+    l2data = dict(ldata["card"], invopt=dict(invopt, mistype="L2"))
+    for name, fn, key in (
+            ("compat_loc_cmt.prop8seis, value only", lambda: lc.prop8seis(*m0, p8, device=dev),
+             "prop8seis"),
+            ("compat_loc_cmt.prop8seis, loc Jacobian", lambda: lc.prop8seis(
+                *m0, p8, drv=lc.DerivativeSwitches(x=True, y=True, z=True), device=dev),
+             "prop8seis"),
+            ("compat_loc_cmt.prop8seis, full Jacobian", lambda: lc.prop8seis(
+                *m0, p8, drv=lc.DerivativeSwitches(x=True, y=True, z=True, moment_tensor=True),
+                device=dev), "prop8seis"),
+            ("compat_loc_cmt.optfunc_OT loc-only", lambda: lc.optfunc_OT(m0, ldata["card"]),
+             "optfunc_OT"),
+            ("compat_loc_cmt.optfunc_L2 loc-only", lambda: lc.optfunc_L2(m0, l2data),
+             "optfunc_L2")):
+        timed(name, fn, per_call[f"loc_cmt_driver_{key}"])
+    lc.init()
+    print(f"[drivers] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, per_call
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1254,6 +1558,10 @@ def main() -> int:
     toolbox, toolbox_per_call = toolbox_phase(dev, card)
     launches.update(toolbox)
 
+    # 13. the reference's two inversion drivers through their compat modules
+    drivers, drivers_per_call = drivers_phase(dev, card)
+    launches.update(drivers)
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -1263,7 +1571,7 @@ def main() -> int:
         "launches_per_call": {"loc64": launches["loc64"], "ricker": launches["ricker"],
                               "scan": launches["scan"], "layered": launches["layered"],
                               "layered_scan": launches["layered_scan"], **per_eval,
-                              **toolbox_per_call},
+                              **toolbox_per_call, **drivers_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

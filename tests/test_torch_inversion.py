@@ -360,7 +360,7 @@ def test_calc_wasser_waveform_matches_golden_and_jax(golden, ricker):
     wavg = ti.calc_wasser_waveform(tw("tpred"), un, win01, tprob.targets, cfg_fp,
                                    returnmarg=False)
     np.testing.assert_allclose(wavg.numpy(), got[0].numpy(), rtol=1e-14)
-    assert ti.dg_scale(tprob.window).item() == float(ji.dg_scale(prob.window, cfg))
+    assert ti.dg_scale(tprob.window, tcfg).item() == float(ji.dg_scale(prob.window, cfg))
 
 
 def test_ricker_objective_matches_golden_and_jax(golden, ricker):
@@ -398,3 +398,52 @@ def test_ricker_batched_and_grid_helpers(ricker):
     t, w = np.asarray(gd["tobs"]), np.asarray(gd["wobs"])
     assert ti.auto_grid6(torch.tensor(t), torch.tensor(w)) == ji.auto_grid6(t, w)
     assert ti.default_grid_dims(61) == ji.default_grid_dims(61)
+
+
+@pytest.mark.parametrize("kw", [dict(u0=-3.0, u1=3.0), dict(tantheta=2.0),
+                                dict(u0=np.linspace(-2.0, -1.0, 6).reshape(2, 3), u1=2.5,
+                                     tantheta=0.5)],
+                         ids=["fixed", "tantheta", "array_limits"])
+def test_build_windows_fixed_limits_and_tantheta_match_jax(kw):
+    """build_windows with fixed u0/u1 (scalars or per-trace arrays)
+    broadcast over the (2, 3) batch, and with a tantheta other than 1:
+    every field equal to the JAX package's, in shape, dtype and value."""
+    rng = np.random.default_rng(11)
+    t, wave = np.linspace(0.0, 15.0, 16), rng.normal(size=(2, 3, 16))
+    want = ji.build_windows(jnp.asarray(t), jnp.asarray(wave), **kw)
+    got = ti.build_windows(torch.tensor(t), torch.tensor(wave), **kw)
+    for name in got._fields:
+        a, b = getattr(got, name), np.asarray(getattr(want, name))
+        assert a.dtype == torch.float64 and tuple(a.shape) == b.shape, name
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+@pytest.mark.parametrize("tant_in_dg", [True, False], ids=["ricker", "loc_cmt"])
+def test_calc_wasser_waveform_origin_time_conventions_match_jax(tant_in_dg):
+    """calc_wasser_waveform on a window with tantheta 2 under both origin-time
+    conventions (TraceConfig.include_tant_in_dg: 1/(tantheta (t1 - t0)) for
+    the Ricker driver, 1/(t1 - t0) for the loc/CMT one): both return forms
+    within 1e-10 of the JAX package's, and dg_scale equal to JAX's."""
+    t = np.linspace(0.0, 10.0, 41)
+    wo, wp = np.sin(0.9 * t) * np.exp(-0.1 * t), np.sin(0.9 * t - 0.4) * np.exp(-0.1 * t)
+    from waveform_ot_torch.ops import make_window as tmake_window
+    from waveform_ot_tpu.ops import make_window as jmake_window
+
+    cfg = ji.TraceConfig(nu=15, ntg=21, include_tant_in_dg=tant_in_dg)
+    tcfg = ti.TraceConfig(nu=15, ntg=21, include_tant_in_dg=tant_in_dg)
+    jwin = jmake_window(0.0, 10.0, -1.5, 1.5, tantheta=2.0)
+    twin = tmake_window(0.0, 10.0, -1.5, 1.5, tantheta=2.0, device="cpu")
+    jt = ji.build_target(jnp.asarray(t), jnp.asarray(wo), jwin, cfg, impl="jnp")
+    tt = convert.targets(jt, device="cpu")
+    assert ti.dg_scale(twin, tcfg).item() == float(ji.dg_scale(jwin, cfg))
+    (wt, wu), (drt, dru), (dgt, dgu) = jax.jit(lambda tj, wj: ji.calc_wasser_waveform(
+        tj, wj, jwin, jt, cfg, deriv=True, impl="jnp"))(jnp.asarray(t), jnp.asarray(wp))
+    # returnmarg=False is JAX's average of the two marginals (pipeline.py:165)
+    wants = {True: [wt, wu, drt, dru, dgt, dgu],
+             False: [(wt + wu) / 2.0, (drt + dru) / 2.0, dgt / 2.0]}
+    for marg, want in wants.items():
+        got = ti.calc_wasser_waveform(torch.tensor(t), torch.tensor(wp)[None], twin, tt, tcfg,
+                                      deriv=True, returnmarg=marg)
+        for a, b in zip(jax.tree_util.tree_leaves(got), want):
+            np.testing.assert_allclose(a.numpy().reshape(np.shape(b)), np.asarray(b),
+                                       rtol=0, atol=1e-10)

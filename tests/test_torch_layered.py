@@ -441,3 +441,40 @@ def test_omega0_lane_as_accurate_as_jax(setup, zi):
             ours = err(getattr(op.rev, name)[0, lane].numpy())
             theirs = err(ref["ops"][name][zi, lane])
             assert ours <= 10.0 * theirs + 1e-14, (name, lane, ours, theirs)
+
+
+# the compat_loc_cmt parity problem's crust and quadrature (test_torch_drivers.py)
+DRIVERS_TABLE = [(3.0, 5.0, 2.9, 2.5), (0.0, 7.0, 4.0, 3.0)]
+DRIVERS_NT, DRIVERS_NK, DRIVERS_KMAX = 16, 48, 1.0
+
+
+@pytest.mark.parametrize("z", [4.0, 4.5], ids=["source", "model"])
+def test_omega0_lane_two_layer_as_accurate_as_jax(z):
+    """The two-layer crust of the compat_loc_cmt parity tests at the
+    production damping 0.023, at their source depth and model depth: the
+    surface operator on the omega = 0 lane and the next against the same
+    recursion in long double. The port's error is within 10x of the JAX
+    package's own, field by field (measured on lane 0: W2 8.4e-7 and 7.4e-7
+    of its max against JAX's 7.2e-7 and 6.1e-7, RA2 1.2e-7-1.4e-7 for both;
+    on lane 1 ~2e-12; RB2 and inner2 are exact, the source lying in the
+    half-space). So where test_torch_drivers_damping.py finds the two
+    packages apart, both are off the exact lane alike."""
+    plan = TL._synth_plan(DRIVERS_NT, 1.0, 2, ("clp_step", 0.05, 0.2), DRIVERS_NK,
+                          DRIVERS_KMAX, np.inf)
+    band = plan.bands[0]._replace(om=plan.bands[0].om[:2])
+    model = TL.layered_model_from_table(DRIVERS_TABLE, device=CPU)
+    op, _ = TL._surface_operator(model, torch.tensor([z], dtype=F64), band, plan.k_np,
+                                 0.023, True, False)
+    jops = jax.jit(lambda zz: JL._band_operators(JL.layered_model_from_table(DRIVERS_TABLE),
+                                                 zz, plan.k_np, band.om, "f64", 0.023,
+                                                 True))(jnp.asarray(z))
+    for lane in range(2):
+        exact = _ld_surface_operator(model, np.longdouble(z), plan.k_np.astype(np.longdouble),
+                                     LD(complex(band.om[lane], 0.023)))
+        for name, want in exact.items():
+            scale = float(np.abs(want).max()) or 1.0     # RB2 is 0 in the half-space
+            err = lambda got: float(np.abs(got - want).max()) / scale
+            jfield = getattr(jops, name)
+            ours = err(getattr(op.rev, name)[0, lane].numpy())
+            theirs = err(np.asarray(jfield.re)[lane] + 1j * np.asarray(jfield.im)[lane])
+            assert ours <= 10.0 * theirs + 1e-14, (name, lane, ours, theirs)

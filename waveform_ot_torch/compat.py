@@ -1,5 +1,5 @@
 """The reference's class-based API on the PyTorch port (counterpart of
-waveform_ot_tpu.compat, lines 1-785 there).
+waveform_ot_tpu.compat, lines 1-1072 there).
 
 Users of msambridge/waveform-ot keep their calling code: ``OTpdf``,
 ``waveformFP``, ``wasser``, ``MargWasserstein``, ``SlicedWasserstein``, the
@@ -12,9 +12,11 @@ take none (``SinkhornAB``, ``filter``) have their own ``device`` argument.
 The LP, least-squares and numerical-integration oracles stay on the host
 (``ops/validate.py``, SciPy).
 
-Not here yet: the fast-marching route (``calcpdf(method="FMM")`` raises
-FingerprintMethodError), the POT bridges ``wasserPOT``/``sinkhornPOT``,
-``calcFMM_dist_deriv`` and the plotting wrappers.
+The plotting wrappers (``plotWasser`` ... ``plot_rays_discrete``, the JAX
+compat's lines 786-1072) draw through ``waveform_ot_torch.viz``. Not here
+yet: the fast-marching route (``calcpdf(method="FMM")`` raises
+FingerprintMethodError), the POT bridges ``wasserPOT``/``sinkhornPOT`` and
+``calcFMM_dist_deriv``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ from waveform_ot_torch.ops.validate import (
 )
 from waveform_ot_torch.ops.wasser import (
     check_common_cdf, transport_plan_1d, transport_plan_jacobian, wasser as _wasser,
+)
+from waveform_ot_torch.viz import (
+    _arr, _plt, plot_density_surface, plot_transport_frames, plot_transport_plan,
 )
 
 # The reference's exception names, its own spellings included
@@ -669,3 +674,276 @@ def SinkhornAB(mu, sigma, verbose=False, device="cuda"):
 def filter(image, sigma, device="cuda"):  # noqa: A001 - reference name (OTlib.py:936)
     """Zero-padded Gaussian blur, truncate=32 (reference filter)."""
     return _np(gaussian_filter(_tensor(image, device), sigma))
+
+
+def trim_axs(axs, N):
+    """Trim a subplot-axes array to N entries (reference trim_axs,
+    OTlib.py:1322-1328)."""
+    axs = axs.flat
+    for ax in axs[N:]:
+        ax.remove()
+    return axs[:N]
+
+
+# ---------------------------------------------------------------------------
+# reference-signature plot wrappers (viz backs them; figures saved when a
+# filename is given, matching the reference's filename='Null'/'no' idiom)
+# ---------------------------------------------------------------------------
+
+
+def plotWasser(xp, Fp, Gp, t, IF, IG, x, IGF, xmIFGsq, iFGdiff,
+               filename="Null"):
+    """Six-panel CDF/inverse-CDF/transport-map figure from precomputed
+    curves (reference plotWasser, OTlib.py:508-572). viz.plot_wasser_panels
+    computes the same panels directly from a pair of densities."""
+    plt = _plt()
+    fig, axs = plt.subplots(3, 2, figsize=(9, 10))
+    panels = [
+        (xp, [(Fp, "$F(x)$"), (Gp, "$G(x)$")], "CDFs"),
+        (t, [(IF, "$F^{-1}(t)$"), (IG, "$G^{-1}(t)$")], "Inverse CDFs"),
+        (x, [(IGF, "$G^{-1}(F(x))$")], "Transport map"),
+        (x, [(x - IGF, "$x - G^{-1}(F(x))$")], "Displacement"),
+        (x, [(xmIFGsq, "$|x - G^{-1}(F(x))|^2$")], "Squared displacement"),
+        (t, [(iFGdiff, "$F^{-1}(t) - G^{-1}(t)$")], "Quantile difference"),
+    ]
+    for ax, (ox, curves, title) in zip(axs.flat, panels):
+        for cy, lab in curves:
+            ax.plot(_arr(ox), _arr(cy), label=lab)
+        ax.set_title(title)
+        ax.legend(fontsize=7)
+    fig.tight_layout()
+    if filename != "Null":
+        fig.savefig(filename)
+    plt.close(fig)
+
+
+def plotOT1D(source: OTpdf, target: OTpdf, filename="Null",
+             returnplan=False):
+    """1-D transport-plan figure (reference plotOT1D, OTlib.py:1388-1424):
+    the optimal plan matrix with the two marginals alongside."""
+    H = _np(transport_plan_1d(source.density.pdf, source.density.x,
+                              target.density.pdf, target.density.x))
+    fig = plot_transport_plan(H, source.density, target.density,
+                              filename=None if filename == "Null"
+                              else filename)
+    _plt().close(fig)
+    if returnplan:
+        return H
+
+
+def plot_optimal_transform_frames(source: OTpdf, target: OTpdf, frames,
+                                  plotsum=False, filename=None):
+    """Displacement-interpolation frames (reference
+    plot_optimal_transform_frames, OTlib.py:1330-1386). ``frames`` is a
+    frame count or an explicit sequence of interpolation weights."""
+    if isinstance(frames, int):
+        fig = plot_transport_frames(source.density, target.density,
+                                    nframes=frames, filename=filename)
+    else:
+        fig = plot_transport_frames(source.density, target.density,
+                                    weights=_arr(frames),
+                                    filename=filename)
+    _plt().close(fig)
+
+
+def plot_phi(X, Y, phi, t, waveform, xl, yl, filename=None):
+    """Zero contour of the FMM indicator (reference plot_phi,
+    FingerprintLib.py:663-675) — reference argument order."""
+    plt = _plt()
+    fig = plt.figure(figsize=(8, 4))
+    plt.xlim(*xl)
+    plt.ylim(*yl)
+    plt.xlabel("t")
+    plt.ylabel("u")
+    plt.contour(X, Y, phi, [0], linewidths=1, colors="grey")
+    plt.contourf(X, Y, phi, [-1, 0, 1], colors=["lightgray", "powderblue"])
+    plt.plot(t, waveform, "-", color="green", lw=0.5)
+    plt.title("Zero contour of $d(u,t)$")
+    if filename:
+        fig.savefig(filename)
+    plt.close(fig)
+
+
+def plot_LS(f, wf, xl, yl, title, col1, col2, aspect=False, filename="no",
+            pdf=False, ncon=10, fxsize=None, fysize=None):
+    """Contoured field + waveform (reference plot_LS,
+    FingerprintLib.py:742-779): aspect=True plots in NORMALIZED
+    coordinates with an equal-aspect (9,9) frame and 3*ncon levels;
+    aspect=False plots in the un-normalized fingerprint box ((8,4)
+    frame, 2*ncon levels) with the xl/yl limits applied when given (the
+    reference then overrides ylim from globals — a notebook-context
+    quirk not reproduced)."""
+    plt = _plt()
+    if aspect:
+        fig = plt.figure(figsize=(fxsize or 9, fysize or 9))
+        ax = fig.add_subplot(111)
+        ax.set_aspect("equal")
+        tg = np.linspace(wf.tlimnfp[0], wf.tlimnfp[1], wf.ntg)
+        ug = np.linspace(wf.ulimnfp[0], wf.ulimnfp[1], wf.nug)
+        ax.plot(wf.pn[:, 0], wf.pn[:, 1], "-", color=col1, lw=0.7)
+        ax.contour(tg, ug, _arr(f), 3 * ncon, linewidths=0.5,
+                   colors=col2)
+    else:
+        fig = plt.figure(figsize=(fxsize or 8, fysize or 4))
+        ax = fig.add_subplot(111)
+        if xl is not None:
+            ax.set_xlim(*xl)
+        if yl is not None:
+            ax.set_ylim(*yl)
+        tg = np.linspace(wf.tlimfp[0], wf.tlimfp[1], wf.ntg)
+        ug = np.linspace(wf.ulimfp[0], wf.ulimfp[1], wf.nug)
+        ax.plot(wf.p[:, 0], wf.p[:, 1], "-", color=col1, lw=0.7)
+        ax.contour(tg, ug, _arr(f), 2 * ncon, linewidths=0.5,
+                   colors=col2)
+    ax.set_title(title)
+    ax.set_xlabel("t")
+    ax.set_ylabel("u")
+    if filename != "no":
+        fig.savefig(filename)
+    plt.close(fig)
+
+
+def plot_2LS(wf1, wf2, title1, title2, col1, col2, filename="no", pdf=False,
+             ncon=10, fxsize=None, fysize=None, aspect=False):
+    """Side-by-side fingerprint pair (reference plot_2LS,
+    FingerprintLib.py:781-816)."""
+    plt = _plt()
+    fig, axs = plt.subplots(1, 2, figsize=(fxsize or 18, fysize or 9))
+    for ax, wf, title in ((axs[0], wf1, title1), (axs[1], wf2, title2)):
+        if aspect:
+            ax.set_aspect("equal")
+        field = wf.pdf if pdf else wf.dfield
+        tg = np.linspace(wf.tlimnfp[0], wf.tlimnfp[1], wf.ntg)
+        ug = np.linspace(wf.ulimnfp[0], wf.ulimnfp[1], wf.nug)
+        ax.contour(tg, ug, _arr(field), ncon, linewidths=0.5,
+                   colors=col2)
+        ax.plot(wf.pn[:, 0], wf.pn[:, 1], "-", color=col1, lw=0.7)
+        ax.set_title(title)
+    if filename != "no":
+        fig.savefig(filename)
+    plt.close(fig)
+
+
+def plot_rays(plotind, wf, title, col1, col2, filename="no", fxsize=None,
+              fysize=None):
+    """Rays from selected grid points to their nearest waveform points
+    (reference plot_rays, FingerprintLib.py:715-740)."""
+    plt = _plt()
+    fig = plt.figure(figsize=(fxsize or 9, fysize or 9))
+    ax = fig.add_subplot(111)
+    ax.set_aspect("equal")
+    pts = _grid_points_n(wf)
+    for kk in _arr(plotind).ravel():
+        x1, y1 = wf.xrays[kk]
+        ax.plot([pts[kk, 0], x1], [pts[kk, 1], y1], "b-", lw=0.5)
+        ax.plot(x1, y1, "ro", markersize=2.0)
+    ax.plot(wf.pn[:, 0], wf.pn[:, 1], "-", color="green", lw=0.5)
+    ax.set_title(title)
+    ax.set_xlabel("t")
+    ax.set_ylabel("u")
+    if filename != "no":
+        fig.savefig(filename)
+    plt.close(fig)
+
+
+def plotPDFsurface(pdf, t, ridge, mycmap=None, elev=75, azim=-134,
+                   filename=None):
+    """3-D perspective surface of the fingerprint PDF (reference
+    plotPDFsurface, FingerprintLib.py:641-661)."""
+    pdf = _arr(pdf)
+    nu, ntg = pdf.shape
+    tg = np.linspace(0.0, 1.0, ntg)
+    ug = np.linspace(0.0, 1.0, nu)
+    fig = plot_density_surface(pdf, tg, ug, ridge_t=_arr(t),
+                               ridge_u=_arr(ridge), elev=elev,
+                               azim=azim, cmap=mycmap or "cubehelix_r",
+                               filename=filename)
+    _plt().close(fig)
+
+
+def plotMarginals(wfwave, wf: OTpdf, tag="_", outdir="."):
+    """Marginal strip plots saved as Marginal_{u,t}<tag>.png plus the
+    combined Marginals_and_fingerprint<tag>.pdf of ``wfwave``'s distance
+    field (reference plotMarginals, FingerprintLib.py:818-851); the third
+    figure is skipped when ``wfwave`` is None."""
+    import os
+
+    plt = _plt()
+    if wf.calcmarg:
+        wf.setMarginals()
+    suffix = tag if tag != "-" else ""
+    for axis, name in ((1, "u"), (0, "t")):
+        fig = plt.figure(figsize=(9, 1))
+        m = wf.marg[axis]
+        plt.plot(m.x, m.pdf)
+        plt.fill_between(m.x, 0, m.pdf)
+        plt.xlim(m.x[0], m.x[-1])
+        plt.tick_params(left=False, bottom=True, labelleft=False,
+                        labelbottom=False)
+        fig.savefig(os.path.join(outdir, f"Marginal_{name}{suffix}.png"),
+                    dpi=300)
+        plt.close(fig)
+    if wfwave is not None:
+        plot_LS(wfwave.dfield, wfwave, None, None, " ", "black", "grey",
+                aspect=True,
+                filename=os.path.join(
+                    outdir, f"Marginals_and_fingerprint{suffix}.pdf"))
+
+
+def plot_RF_SDF(t, RFo, ltype="b-", string="Predicted receiver function",
+                grid=False, legend=False, filename=None):
+    """Waveform preview returning the axis limits (reference plot_RF_SDF,
+    FingerprintLib.py:627-640)."""
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(8, 4))
+    ax.set_title(string)
+    ax.set_xlabel("Time, t (s)")
+    ax.set_ylabel("Amplitude, u")
+    ax.grid(grid)
+    if len(RFo) != 0:
+        ax.plot(t, RFo, "-", color="grey", label="Noisy Receiver Function")
+    ax.plot(t, np.zeros(np.shape(RFo)), "--", linewidth=0.5, color="grey")
+    if legend:
+        ax.legend()
+    xl, yl = ax.get_xlim(), ax.get_ylim()
+    if filename:
+        fig.savefig(filename)
+    plt.close(fig)
+    return xl, yl
+
+
+def plot_rays_discrete(X, Y, f, phi, t, waveform, xl, yl, title, col1, col2,
+                       darg, q, points, filename=None):
+    """Rays from selected grid points to their nearest discrete waveform
+    node (reference plot_rays_discrete, FingerprintLib.py:676-713):
+    ``darg`` indexes into the q>=1 node set of the indicator grid ``q``;
+    viz.plot_rays_discrete is the functional-API equivalent working from
+    vertex indices directly."""
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(9, 9))
+    ax.set_aspect("equal")
+    X, Y = _arr(X), _arr(Y)
+    nu, ntg = X.shape
+    Xn, Yn = np.meshgrid(np.linspace(0, 1, ntg), np.linspace(0, 1, nu))
+    ax.contour(Xn, Yn, _arr(phi), [0], linewidths=1, colors=col1)
+    ax.contour(Xn, Yn, _arr(f), 30, linewidths=0.5, colors=col2)
+    u0 = Y[0, 0]
+    du = Y[-1, 0] - u0
+    q = _arr(q)
+    darg = _arr(darg)
+    wp = np.where(q >= 1)
+    for (i, j) in points:
+        ii = wp[1][darg[i, j]]
+        jj = wp[0][darg[i, j]]
+        ax.plot([Xn[i, j], Xn[0][ii]], [Yn[i, j], Yn[jj][0]], "b-", lw=0.5)
+    ax.plot(np.linspace(0, 1, ntg), (_arr(waveform) - u0) / du, "-",
+            color="green", lw=0.5)
+    ax.plot(Xn[wp], Yn[wp], "o", lw=0.5)
+    ax.plot(Xn[q == 2], Yn[q == 2], "ro")
+    ax.plot(Xn[q == -2], Yn[q == -2], "go")
+    ax.set_title(title)
+    ax.set_xlabel("t")
+    ax.set_ylabel("u")
+    if filename:
+        fig.savefig(filename)
+    plt.close(fig)

@@ -4,8 +4,10 @@ The JAX package's ``LocCMTProblem``, ``RickerProblem`` (with their
 ``Window``, ``Targets``/``Density1D``, ``StationSet`` and ``MediumConfig``),
 ``LayeredModel``, ``Density1D``/``Density2D`` and ``SlicedProjections``
 are read by field name, array by array through numpy, so this module never
-imports JAX. Each array becomes a tensor on ``device``; floating arrays
-take ``dtype``. The device is the card unless the caller names another.
+imports JAX. The compat drivers' dicts come over too: a ``prop8data``
+(:func:`prop8data`) and the nested ``obs_grids`` lists (:func:`obs_grids`).
+Each array becomes a tensor on ``device``; floating arrays take ``dtype``.
+The device is the card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -92,3 +94,27 @@ def sliced_projections(obj, device="cuda", dtype=torch.float64) -> SlicedProject
     permutations become int64."""
     pr = _fields(SlicedProjections, obj, device, dtype)
     return pr._replace(psorted=pr.psorted.long())
+
+
+def prop8data(d: dict, device="cuda", dtype=torch.float64) -> dict:
+    """A copy of the loc/CMT driver's ``prop8data`` dict for the port: a
+    LayeredModel of the JAX package under 'model' becomes the port's on
+    ``device``; a layer table or None stays as it is; arrays ('recx',
+    'recy', 'obs_seis') become NumPy arrays."""
+    out = dict(d)
+    model = d.get("model")
+    if model is not None and all(hasattr(model, f) for f in LayeredModel._fields):
+        out["model"] = layered_model(model, device, dtype)
+    for key in ("recx", "recy", "obs_seis"):
+        if key in d:
+            out[key] = np.asarray(d[key])
+    return out
+
+
+def obs_grids(grids) -> list:
+    """Nested lists of 6-tuples [t0, t1, u0, u1, Nu, Nt] (any nesting, such
+    as the (nr, nc) ``obs_grids``) with Python numbers: floats for the
+    limits, ints for the grid sizes."""
+    if np.ndim(grids[0]) == 0:
+        return [float(v) for v in grids[:4]] + [int(v) for v in grids[4:]]
+    return [obs_grids(g) for g in grids]

@@ -236,7 +236,7 @@ def layered_misfit_grid(zs, xy, prob: LocCMTProblem, opts: InvOptions,
     if opts.cmt:
         raise ValueError("layered_misfit_grid scans location only "
                          "(cmt=True has no 3-vector gradient contract)")
-    stage_a, stage_b = stages
+    stage_a, stage_b = stages[:2]
     dtype, device = xy.dtype, xy.device
     # the depth floor's value; its straight-through gradient factor is 1
     zc = torch.clamp_min(torch.as_tensor(zs, dtype=dtype, device=device), opts.zmin)

@@ -31,6 +31,10 @@ class TraceConfig:
     q:         density exponent (None -> exp(-|d|/lam), 2 -> exp(-d^2/lam))
     p:         Wasserstein order (1 or 2)
     transform: arctan amplitude squash before fingerprinting
+    include_tant_in_dg: the origin-time derivative's convention: True divides
+               by tantheta (t1 - t0), as the Ricker driver does
+               (ricker_util.py:333); False by (t1 - t0) alone, as the loc/CMT
+               driver does (loc_cmt_util.py:569)
     """
 
     nu: int
@@ -39,6 +43,7 @@ class TraceConfig:
     q: int | None = None
     p: int = 2
     transform: bool = False
+    include_tant_in_dg: bool = True
 
     @property
     def spec(self) -> FingerprintSpec:
@@ -99,10 +104,14 @@ def trace_misfit(t, w, win: Window, targets: Targets, cfg: TraceConfig,
                                   tshift=tshift)
 
 
-def dg_scale(win: Window):
-    """Normalized -> physical origin-time derivative factor,
-    1 / (tantheta (t1 - t0)) (the Ricker convention, ricker_util.py:333)."""
-    return 1.0 / ((win.t1 - win.t0) * win.tantheta)
+def dg_scale(win: Window, cfg: TraceConfig):
+    """Normalized -> physical origin-time derivative factor: 1 / (tantheta
+    (t1 - t0)) under ``cfg.include_tant_in_dg`` (ricker_util.py:333), else
+    1 / (t1 - t0) (loc_cmt_util.py:569)."""
+    scale = win.t1 - win.t0
+    if cfg.include_tant_in_dg:
+        scale = scale * win.tantheta
+    return 1.0 / scale
 
 
 def calc_wasser_waveform(t, w, win: Window, targets: Targets,
@@ -131,7 +140,7 @@ def calc_wasser_waveform(t, w, win: Window, targets: Targets,
         drt, dgt = torch.autograd.grad(wt.sum(), (w, shift), retain_graph=True)
         (dru,) = torch.autograd.grad(wu.sum(), w)
     wt, wu = wt.detach(), wu.detach()
-    s = dg_scale(win)
+    s = dg_scale(win, cfg)
     if returnmarg:
         return [wt, wu], [drt, dru], [dgt * s, torch.zeros_like(dgt)]
     return (wt + wu) / 2.0, (drt + dru) / 2.0, dgt * s / 2.0

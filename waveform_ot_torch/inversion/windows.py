@@ -7,17 +7,24 @@ import torch
 from waveform_ot_torch.ops.fingerprint import Window
 
 
-def build_windows(t, wave, pad: float = 0.3) -> Window:
+def build_windows(t, wave, pad: float = 0.3, u0=None, u1=None,
+                  tantheta: float = 1.0) -> Window:
     """Amplitude windows of traces ``wave`` (..., nt) on the shared axis t.
 
     u0/u1 have the batch shape ``wave.shape[:-1]``: the trace's range padded
-    by ``pad`` of it on both sides. t0/t1 are scalars and tantheta is 1.
+    by ``pad`` of it on both sides, or the fixed limits ``u0``/``u1``
+    broadcast over the batch where given. t0/t1 are scalars and tantheta a
+    scalar in the traces' dtype.
     """
     wmin = wave.amin(dim=-1)
     wmax = wave.amax(dim=-1)
     du = wmax - wmin
-    return Window(t0=t.min(), t1=t.max(), u0=wmin - pad * du, u1=wmax + pad * du,
-                  tantheta=torch.ones((), dtype=wave.dtype, device=wave.device))
+    fixed = lambda v, like: torch.broadcast_to(
+        torch.as_tensor(v, dtype=like.dtype, device=like.device), like.shape)
+    u0a = wmin - pad * du if u0 is None else fixed(u0, wmin)
+    u1a = wmax + pad * du if u1 is None else fixed(u1, wmax)
+    return Window(t0=t.min(), t1=t.max(), u0=u0a, u1=u1a,
+                  tantheta=torch.as_tensor(tantheta, dtype=wave.dtype, device=wave.device))
 
 
 def unit_amplitude_windows(win: Window) -> Window:

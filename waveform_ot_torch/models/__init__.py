@@ -2,7 +2,7 @@
 Gaussian-process noise."""
 
 from waveform_ot_torch.models.ricker import (  # noqa: F401
-    ricker, ricker_wavelet, ricker_wavelet_with_jacobian,
+    ricker, ricker_wavelet, ricker_wavelet_noisy, ricker_wavelet_with_jacobian,
 )
 from waveform_ot_torch.models.seismo import (  # noqa: F401
     MediumConfig, StationSet, moment_tensor_from_sdr, moment_tensor_ls,

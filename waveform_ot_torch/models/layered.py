@@ -25,12 +25,13 @@ shape (..., nr, 3, nt).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
-from waveform_ot_torch.models.seismo import StationSet
+from waveform_ot_torch.models.seismo import StationSet, mxyz_from_upper
 
 # ---------------------------------------------------------------------------
 # Bessel functions J0..J3 of a real argument x >= 0: power series below the
@@ -80,24 +81,34 @@ def _bessel_orders(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(below, series, asym)
 
 
+def _bessel_slopes(j: torch.Tensor) -> torch.Tensor:
+    """(4, ...) J'_0 .. J'_3 from (5, ...) J_0 .. J_4."""
+    return torch.stack([-j[1], 0.5 * (j[0] - j[2]), 0.5 * (j[1] - j[3]), 0.5 * (j[2] - j[4])])
+
+
 class _BesselJ0123(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         j = _bessel_orders(x, 5 if ctx.needs_input_grad[0] else 4)
         ctx.save_for_backward(j)
+        ctx.save_for_forward(x)
         return j[:4].clone()
 
     @staticmethod
     def backward(ctx, g):
         (j,) = ctx.saved_tensors
-        dj = torch.stack([-j[1], 0.5 * (j[0] - j[2]), 0.5 * (j[1] - j[3]),
-                          0.5 * (j[2] - j[4])])
-        return (g * dj).sum(0)
+        return (g * _bessel_slopes(j)).sum(0)
+
+    @staticmethod
+    def jvp(ctx, gx):
+        (x,) = ctx.saved_tensors
+        return _bessel_slopes(_bessel_orders(x, 5)) * gx
 
 
 def bessel_j0123(x: torch.Tensor) -> torch.Tensor:
     """Stacked (4, ...) J0(x), J1(x), J2(x), J3(x) for x >= 0, differentiable
-    by the exact recurrence, so gradients are as accurate as the values."""
+    in reverse and forward mode by the exact recurrence, so derivatives are
+    as accurate as the values."""
     return _BesselJ0123.apply(x)
 
 
@@ -820,10 +831,50 @@ def _finish_synthesis(spec, plan: _SynthPlan, nt, dt, stf, alpha_damp, t0):
     return u * torch.tensor([1.0, 1.0, -1.0], dtype=dtype, device=u.device)[:, None]
 
 
+def _band_responses(ops, dops, a, plan: _SynthPlan, alpha_damp, dtype):
+    """Channel responses (:func:`_response`) of every band, in the complex
+    dtype of ``dtype``, the bands concatenated over frequency; given the
+    operators' z-derivatives ``dops``, the responses' z-derivatives follow
+    as a second half."""
+    cwork = torch.complex128 if dtype == torch.float64 else torch.complex64
+    device = ops[0].src.rho.device
+    parts, dparts = [], []
+    for op, band, drev in zip(ops, plan.bands, dops if dops is not None else [None] * len(ops)):
+        rdtype = band.cdtype.to_real()
+        kb = torch.as_tensor(plan.k_np, dtype=rdtype, device=device)
+        om_c = torch.complex(torch.as_tensor(band.om, dtype=rdtype, device=device),
+                             torch.full((len(band.om),), alpha_damp, dtype=rdtype, device=device))
+        u2, ush, dresp = _response(op.rev, op.src, kb, om_c, a, drev)
+        parts.append((u2.to(cwork), ush.to(cwork)))
+        if dresp is not None:
+            dparts.append(tuple(v.to(cwork) for v in dresp))
+    return tuple(torch.cat(p, 1) for p in zip(*(parts + dparts)))
+
+
+def _k(plan: _SynthPlan, like) -> torch.Tensor:
+    """The wavenumber midpoints in the dtype and on the device of ``like``."""
+    return torch.as_tensor(plan.k_np, dtype=torch.float64, device=like.device).to(like.dtype)
+
+
+def _offsets(stns: StationSet, x, y):
+    """Range r (clamped at 1e-6) and azimuth phi of the stations from sources
+    (..., 1) at x, y: (..., nr) each."""
+    dxr = stns.x - x
+    dyr = stns.y - y
+    return torch.clamp_min(torch.sqrt(dxr * dxr + dyr * dyr), 1e-6), torch.atan2(dyr, dxr)
+
+
 def _as_sources(x, y, z, like):
     """x, y, z as tensors of the dtype and device of ``like``, at least 1-D."""
     arr = lambda v: torch.atleast_1d(torch.as_tensor(v, dtype=like.dtype, device=like.device))
     return arr(x), arr(y), arr(z)
+
+
+class LayeredStages(NamedTuple):
+    """The closures of :func:`make_layered_stages`."""
+    stage_a: Callable
+    stage_b: Callable
+    jacobian: Callable
 
 
 def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
@@ -832,7 +883,8 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
                         t0: float = 0.0, nk: int = 1024, kmax: float = 2.5,
                         free_surface: bool = True,
                         hp_below: float | None = None):
-    """The two halves of the synthesis, for depth-amortized use:
+    """The two halves of the synthesis, for depth-amortized use, and the
+    Jacobian built on them:
 
       * ``stage_a(z, tangent=False)`` -> ops: the moment-independent surface
         operators of K source depths z (K,) (the stack recursion, the
@@ -847,10 +899,27 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
         z gets its gradient as <its spectra's cotangent, their z-derivative>,
         with the linearization after the Bessel assembly, where it is per
         source and cheap.
+      * ``jacobian(x, y, z, mxyz, stations, loc=True, mt=True)`` -> (u
+        (nr, 3, nt), jac (n, nr, 3, nt)): the seismograms of one source (x,
+        y, z scalars, ``mxyz`` (3, 3)) and their Jacobian, column by column
+        from the structure of the two stages, with no finite differences
+        and no autograd through the stack algebra. The columns are d/dx,
+        d/dy, d/dz (z the depth, positive down) when ``loc``, then, when
+        ``mt``, d/dm6[k] for the six upper-triangular entries (Mxx, Mxy,
+        Mxz, Myy, Myz, Mzz), each off-diagonal entry moving both of its
+        places (:func:`mxyz_from_upper`). Stage A runs once per call, with
+        its closed-form depth tangent when ``loc``, and the depth column is
+        the synthesis of the spectra that tangent gives. x and y reach the
+        seismograms only through each station's range and azimuth in the
+        Bessel assembly: forward-mode derivatives of the assembly alone,
+        both directions in one pass over two copies of the stations. The
+        seismograms are linear in M: the six moment columns are stage B at
+        the six unit tensors on the same operators.
 
     The stack algebra runs in complex128 (complex64 above ``hp_below``
     rad/s); stage B runs in the stations' dtype. ``model`` defaults to
-    :func:`fukuoka_model` on the device of the sources.
+    :func:`fukuoka_model` on the device of the sources. Returns
+    ``LayeredStages(stage_a, stage_b, jacobian)``.
     """
     plan = _synth_plan(nt, dt, pad, stf, nk, kmax, math.inf if hp_below is None else hp_below)
 
@@ -863,8 +932,7 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
 
     def stage_b(ops, x, y, z, a, stns: StationSet, dops=None):
         like = stns.x
-        dtype, device = like.dtype, like.device
-        cwork = torch.complex128 if dtype == torch.float64 else torch.complex64
+        dtype = like.dtype
         x, y, z = _as_sources(x, y, z, like)
         grouped = x.dim() == 2
         if not grouped:
@@ -872,31 +940,61 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
         g, n = x.shape
         nr = like.shape[0]
         a = tuple(torch.as_tensor(ai).reshape(-1, 1, 1) for ai in a)
-        k64 = torch.as_tensor(plan.k_np, dtype=torch.float64, device=device)
-        parts, dparts = [], []
-        for op, band, drev in zip(ops, plan.bands, dops if dops is not None else [None] * len(ops)):
-            kb = k64.to(band.cdtype.to_real())
-            om_c = torch.complex(torch.as_tensor(band.om, dtype=kb.dtype, device=device),
-                                 torch.full((len(band.om),), alpha_damp, dtype=kb.dtype,
-                                            device=device))
-            u2, ush, dresp = _response(op.rev, op.src, kb, om_c, a, drev)
-            parts.append((u2.to(cwork), ush.to(cwork)))
-            if dresp is not None:
-                dparts.append(tuple(v.to(cwork) for v in dresp))
-        u2, ush = (torch.cat(p, 1) for p in zip(*(parts + dparts)))
-        dxr = like - x[..., None]                          # (G, n, nr)
-        dyr = stns.y - y[..., None]
-        r = torch.clamp_min(torch.sqrt(dxr * dxr + dyr * dyr), 1e-6).reshape(g, n * nr)
-        phi = torch.atan2(dyr, dxr).reshape(g, n * nr)
-        spec = _assemble(u2, ush, r, phi, ops[0].src.rho.to(dtype),
-                         k64.to(dtype), plan.dk).reshape(g, n, nr, 3, -1)
-        if dparts:
+        u2, ush = _band_responses(ops, dops, a, plan, alpha_damp, dtype)
+        r, phi = _offsets(stns, x[..., None], y[..., None])
+        spec = _assemble(u2, ush, r.reshape(g, n * nr), phi.reshape(g, n * nr),
+                         ops[0].src.rho.to(dtype), _k(plan, like), plan.dk).reshape(g, n, nr, 3, -1)
+        if dops is not None:
             nf = spec.shape[-1] // 2
             spec = _DepthLink.apply(spec[..., :nf], z, spec[..., nf:].detach())
         u = _finish_synthesis(spec, plan, nt, dt, stf, alpha_damp, t0)
         return u if grouped else u[:, 0]
 
-    return stage_a, stage_b
+    def jacobian(x, y, z, mxyz, stns: StationSet, loc: bool = True, mt: bool = True):
+        like = stns.x
+        dtype, nr = like.dtype, like.shape[0]
+        x, y, z = _as_sources(x, y, z, like)
+        ops, dops = stage_a(z.detach(), tangent=True) if loc else (stage_a(z.detach()), None)
+        rho, k = ops[0].src.rho.to(dtype), _k(plan, like)
+        mxyz = torch.as_tensor(mxyz, dtype=dtype, device=like.device)
+        a = tuple(c.reshape(1, 1, 1) for c in _moment_coeffs(mxyz))
+        with torch.no_grad():
+            if loc:
+                u2, ush = _band_responses(ops, dops, a, plan, alpha_damp, dtype)
+                nf = u2.shape[1] // 2
+                with fwAD.dual_level():
+                    basis = torch.eye(2, dtype=dtype, device=like.device)
+                    xd = fwAD.make_dual(x.expand(2, 1).clone(), basis[:, :1])
+                    yd = fwAD.make_dual(y.expand(2, 1).clone(), basis[:, 1:])
+                    r, phi = _offsets(stns, xd, yd)                  # (2, nr)
+                    spec = fwAD.unpack_dual(_assemble(u2, ush, r.reshape(1, 2 * nr),
+                                                      phi.reshape(1, 2 * nr), rho, k, plan.dk))
+                val, tan = spec.primal[0], spec.tangent[0]         # (2 nr, 3, 2 nf)
+                specs = [val[:nr, ..., :nf], tan[:nr, ..., :nf], tan[nr:, ..., :nf],
+                         val[:nr, ..., nf:]]
+            else:
+                u2, ush = _band_responses(ops, None, a, plan, alpha_damp, dtype)
+                r, phi = _offsets(stns, x[:, None], y[:, None])      # (1, nr)
+                specs = [_assemble(u2, ush, r, phi, rho, k, plan.dk)[0]]
+            if mt:
+                units = _moment_coeffs(mxyz_from_upper(torch.eye(6, dtype=dtype,
+                                                                 device=like.device)))
+                u2, ush = _band_responses(tuple(_expand_operator(op, 6) for op in ops), None,
+                                          tuple(c.reshape(6, 1, 1) for c in units), plan,
+                                          alpha_damp, dtype)
+                r, phi = _offsets(stns, x[:, None], y[:, None])
+                specs += list(_assemble(u2, ush, r.expand(6, nr), phi.expand(6, nr),
+                                        rho.expand(6), k, plan.dk))
+            u = _finish_synthesis(torch.stack(specs), plan, nt, dt, stf, alpha_damp, t0)
+        return u[0], u[1:]
+
+    return LayeredStages(stage_a, stage_b, jacobian)
+
+
+def _expand_operator(op: _SurfaceOperator, g: int) -> _SurfaceOperator:
+    """A one-depth surface operator as a view over g sources."""
+    grow = lambda nt_: type(nt_)(*(v.expand(g, *v.shape[1:]) for v in nt_))
+    return _SurfaceOperator(grow(op.rev), grow(op.src))
 
 
 def layered_seismograms(x, y, z, mxyz, stations: StationSet,
@@ -918,7 +1016,7 @@ def layered_seismograms(x, y, z, mxyz, stations: StationSet,
     float32 and float64 stations alike (complex64 above ``hp_below`` rad/s);
     the Bessel assembly and the FFT in the stations' dtype.
     """
-    stage_a, stage_b = make_layered_stages(
+    stage_a, stage_b, _ = make_layered_stages(
         model=model, nt=nt, dt=dt, stf=stf, alpha_damp=alpha_damp, pad=pad, t0=t0,
         nk=nk, kmax=kmax, free_surface=free_surface, hp_below=hp_below)
     like = stations.x
@@ -949,7 +1047,7 @@ def make_layered_forward(stations: StationSet | None = None,
     ``structured_vjp=False``, plain autograd through everything, bit for
     bit; the gradients agree to rounding.
     """
-    stage_a, stage_b = make_layered_stages(model=model, nt=nt, dt=dt, **kw)
+    stage_a, stage_b, _ = make_layered_stages(model=model, nt=nt, dt=dt, **kw)
 
     def forward(x, y, z, mxyz, stns):
         like = stns.x

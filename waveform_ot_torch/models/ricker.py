@@ -12,6 +12,7 @@ import math
 import numpy as np
 import torch
 
+from waveform_ot_torch.models.gp_noise import correlated_noise
 from waveform_ot_torch.ops.fingerprint import linspace
 
 
@@ -46,6 +47,28 @@ def ricker_wavelet(tpert, amp, f, trange=(-2.0, 2.0), length: float = 4.0,
     _, w = ricker(freq, length=length, dt=dt)
     wp = amp[..., None] * torch.cat([w, w], dim=-1)
     return _time_axis(trange, wp.shape[-1], wp) + tpert[..., None], wp
+
+
+def ricker_wavelet_noisy(generator: torch.Generator | None, tpert, amp, f,
+                         trange=(-2.0, 2.0), sigma_amp: float = 0.0,
+                         sigma_cor: float = 0.0, length: float = 4.0,
+                         dt: float = 4.0 / 128.0):
+    """Double Ricker with the reference's noise options
+    (ricker_util.py:73-80), for scalar tensors (tpert, amp, f): white noise
+    scaled by sigma_amp * max|w| when sigma_cor == 0, else GP-correlated
+    noise of standard deviation sigma_amp (:func:`correlated_noise`). The
+    normals come from ``generator`` (on the tensors' device; None takes
+    torch's default one), so the draws are not the JAX package's."""
+    t, w = ricker_wavelet(tpert, amp, f, trange=trange, length=length, dt=dt)
+    if sigma_amp == 0.0:
+        return t, w
+    if sigma_cor == 0.0:
+        noise = sigma_amp * w.abs().max() * torch.randn(
+            w.shape, generator=generator, dtype=w.dtype, device=w.device)
+    else:
+        noise = correlated_noise(generator, w.shape[-1], sigma_amp, sigma_cor,
+                                 dtype=w.dtype, device=w.device)
+    return t, w + noise
 
 
 def ricker_wavelet_with_jacobian(tpert, amp, f, trange=(-2.0, 2.0),

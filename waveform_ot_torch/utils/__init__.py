@@ -1,0 +1,6 @@
+"""Utilities: named-array bundles and checkpoints."""
+
+from waveform_ot_torch.utils.io import (  # noqa: F401
+    read_json, read_pickle, restore_checkpoint, save_checkpoint, write_json,
+    write_pickle,
+)
