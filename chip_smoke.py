@@ -98,6 +98,33 @@ is non-zero:
                 (held_launches). Launches per call counted and asserted (0
                 per prop8seis, one per trace per optfunc_OT), in the timing
                 runs too; a host-clock median per call.
+ 14. native     the native slice (native_phase). 14a, the fast-marching
+                route at the FingerprintLib demo's full size (626-sample RF,
+                800x600, lambda 0.04): calcpdf(method="FMM") on the card (0
+                launches; the field is host C++) against calcpdf(Enumerate)
+                (1 launch), median and max |d| over the band d > 2/nu bound
+                at twice the CPU's reading, the FMM pdf within 1e-12 of the
+                CPU object's, calcFMM_dist_deriv's ray end points finite.
+                14b, the POT bridges on 12x16 migration fingerprints (192
+                points): wasserPOT W2 and W1 against the LP oracle solved to
+                feasibility 1e-10 (1e-9 relative) and against Wasser_LinProg
+                at HiGHS's defaults (1e-6), W2 on two 200-point 1-D densities
+                against the closed-form wasser (1e-9), sinkhornPOT at three
+                gammas card vs CPU (1e-10) with its gap to the EMD falling.
+                14c, the zoom L-BFGS: minimize_lbfgs on the Ricker inversion
+                (examples/ricker_inversion.py:49-53, phase 8's problem, f64,
+                max_iter 100) within 0.02 of the truth, and its first 20
+                iterations on the card within 1e-6 of the CPU's in as many
+                calls (ZOOM_RICKER_HELD says why not all 100); the 64-start far-field
+                study (11 stations, f32, max_iter 30, tol 3e-5) through
+                minimize_multi_start(method="zoom"), every start within 0.1 km,
+                its time beside phase 6's "batched" one. Each zoom trial is
+                one batched value+grad call and one launch, asserted. 14d,
+                utils.profiling.top_device_ops on loc64 f32, value+grad
+                (the kernel traced, its rank printed) and value alone (the
+                kernel among the top five). Every launch outside the timing
+                runs is held bit for bit (held_launches); host-clock medians
+                per call.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -109,7 +136,6 @@ from __future__ import annotations
 import contextlib
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -117,6 +143,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from waveform_ot_torch.utils.profiling import device_ms, events_ms, host_median_ms
 
 REPO = Path(__file__).resolve().parent
 NT = 61
@@ -156,6 +184,7 @@ SCAN_TOL_F64 = 1e-10
 LAYERED_MS_RADIUS_KM = 1.0
 LAYERED_MS_SHARE = 0.75          # the bench's bar: this share of starts within 1 km
 STUDY_TIMED = 3                  # study and scan timings: median of 3
+KERNEL_NAME = "distance_field_kernel"  # the kernel's symbol, as ptxas and the profiler name it
 SCAN_CHECKED = 8                 # scan nodes held against float64 on the CPU
 RICKER_TRUTH = (0.0, 1.6, 1.0)
 RICKER_START = (0.7, 1.1, 1.3)
@@ -231,6 +260,30 @@ DRIVER_F64_TOL = SEIS_TOL_F64
 DRIVER_MLS_RTOL = 1e-6         # Moment_LS at the source of noiseless data
 DRIVER_LOC_KM = 1.0            # the loc-only scipy inversion's end point
 DRIVER_TIMED = 5               # host-clock median of 5 per call
+# phase 14: the native slice. The fast-marching field is host code, so its
+# bars are twice what the same comparison gives on the CPU (800x600 RF
+# fingerprint, band d > 2/nu: median 3.5103e-4, max 1.6140e-3)
+FMM_MEDIAN_BOUND = 2 * 3.5103e-4
+FMM_MAX_BOUND = 2 * 1.6140e-3
+NATIVE_TIMED = 5               # host-clock median of 5 per call
+POT_GRID = (12, 16)            # the 2-D EMD pair: 192 points each
+POT_1D = 200                   # points of the 1-D EMD pair
+POT_RTOL = 1e-9                # EMD against the LP oracle and the closed form
+LP_FEASIBILITY = 1e-10         # HiGHS primal/dual tolerances of the tight LP oracle
+LINPROG_DEFAULT_RTOL = 1e-6    # Wasser_LinProg at HiGHS's default tolerances
+SINKHORN_POT_GAMMAS = (3e-2, 1e-2, 3e-3)
+SINKHORN_POT_RTOL = 1e-10      # sinkhornPOT card vs CPU
+ZOOM_RICKER_ITERS = 100        # examples/ricker_inversion.py:49-53
+# card vs CPU over the zoom's first iterations: the solve reaches the
+# objective's noise floor by iteration ~10-20 (|g| ~3e-6 against tol 1e-8)
+# and wanders there until max_iter; beyond ~25 iterations last-bit
+# differences change its line-search decisions (a 1e-15 relative change of
+# the objective: the same 131 calls and x within 1.6e-12 at 20 iterations,
+# 220 against 254 calls at 30), and two card runs of the full solve made
+# 982 and 1,163 calls
+ZOOM_RICKER_HELD = 20
+TOP_OPS = 5
+ALL_OPS = 1000                 # more than any call here has
 
 
 def build_loc64_problem(nr: int, dtype, device):
@@ -482,43 +535,6 @@ def compare_fields(got, ref, tol: float) -> dict:
             "lam_err": lam_err, "dvec_err": dvec_err}
 
 
-def _events_ms(run) -> float:
-    """Device time of ``run()``, by a CUDA event pair around it."""
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    run()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b)
-
-
-def device_ms(fn, launches: int = BACK_TO_BACK, samples: int = SAMPLES) -> float:
-    """Device time of one call of ``fn``: events around ``launches``
-    back-to-back calls, over their count, median of ``samples`` runs after a
-    warm-up run.
-
-    Before each run a spin kernel (torch.cuda._sleep) holds the stream for
-    longer than the host takes to enqueue the run, so the calls reach the
-    device queued up and the events time the device's work, not the
-    wrapper's checks, allocations and launch calls in between."""
-    def run():
-        for _ in range(launches):
-            fn()   # each result is freed at once: its memory serves the next call
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()                                              # warm-up; enqueue time
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    spin_ms = _events_ms(lambda: torch.cuda._sleep(1_000_000)) / 1e6  # per cycle
-    hold = int((2.0 * enqueue_ms + 1.0) / spin_ms)
-    times = []
-    for _ in range(samples):
-        torch.cuda._sleep(hold)
-        times.append(_events_ms(run) / launches)
-    return statistics.median(times)
-
-
 def kernel_bound(verts, tgrid, ugrid) -> tuple[float, str]:
     """(least time in ms, "operations" or "bytes") for the distance field of
     these inputs on the card: OPS_PER_PAIR per point-segment pair and
@@ -541,7 +557,7 @@ def ptxas_by_variant(log: str) -> dict:
     the distance-field library."""
     out, key = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*distance_field_kernelI([fd])Li(\d+)E", line)
+        m = re.search(rf"Compiling entry function '.*{KERNEL_NAME}I([fd])Li(\d+)E", line)
         if m:
             key = ({"f": torch.float32, "d": torch.float64}[m[1]], int(m[2]))
             out[key] = ""
@@ -563,20 +579,6 @@ class CountedObjective:
         else:
             self.values += 1
         return self.fn(ms)
-
-
-def host_median_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
-    """Median wall time of one call, synchronized before and after."""
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 @contextlib.contextmanager
@@ -611,6 +613,64 @@ def held_launches(phase: str):
         yield held
     finally:
         cuda_distance.distance_field_cuda = real
+
+
+class PhaseChecks:
+    """The counted, held and timed calls of a phase whose lines start with
+    ``[tag]`` (phases 13 and 14). ``n_counted`` sums the launches of every
+    counted call, to be held against ``held_launches``' count."""
+
+    def __init__(self, tag: str, card: str):
+        self.tag, self.card, self.n_counted = tag, card, 0
+
+    def counted(self, fn, want=None, what=""):
+        """fn() with the kernel's launch count set to 0 just before and read
+        just after: (result, launches); raises unless launches == want, when
+        given."""
+        from waveform_ot_torch.ops import cuda_distance
+
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = cuda_distance.LAUNCHES
+        self.n_counted += n
+        if want is not None and n != want:
+            raise AssertionError(f"{what}: {n} kernel launches, not {want}")
+        return out, n
+
+    def hold(self, name, dev_, bound):
+        print(f"[{self.tag}] {name}: {dev_:.4e} (bound {bound:g})")
+        if not dev_ <= bound:
+            raise AssertionError(f"{self.tag} {name}: {dev_!r} exceeds {bound:g}")
+
+    def timed(self, name, fn, want, n: int) -> float:
+        """Host-clock median of n calls of fn(); the launches counted over
+        every call of the timing, the warm-up included, must be ``want`` per
+        call."""
+        from waveform_ot_torch.ops import cuda_distance
+
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        ms = host_median_ms(fn, n=n, warm=1)
+        torch.cuda.synchronize()
+        per = cuda_distance.LAUNCHES / (n + 1)
+        print(f"[timing] {self.tag} {name}: {ms:.4f} ms/call (host clock, synchronized, median "
+              f"of {n}), kernel launches per call {per:g} (counted over the {n + 1} calls) "
+              f"{self.card}")
+        if per != want:
+            raise AssertionError(f"{name}: {per} kernel launches per timed call, not {want}")
+        return ms
+
+    def check_held(self, held):
+        """Every counted launch went through held_launches' check."""
+        n_held = sum(held["shapes"].values())
+        print(f"[{self.tag}] launches held bit for bit against distance_field_torch on their "
+              f"card inputs: {n_held}, of {self.n_counted} counted outside the timing runs; by "
+              f"(B, nt, nu, ntg, dtype) {held['shapes']}; {held['check_s']:.2f} s of checks")
+        if n_held < self.n_counted:
+            raise AssertionError(f"{self.n_counted - n_held} of {self.n_counted} counted "
+                                 f"launches went past the check")
 
 
 def _rel(a, b) -> float:
@@ -679,7 +739,7 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
             or dev_f64["grad"] > GRAD_TOL_F64):
         raise AssertionError("layered f64 on the card deviates from f64 on the CPU")
     ms_call = host_median_ms(lambda: loc_cmt_value_and_grad(m32, prob32, opts, cfg,
-                                                            forward=fwd32))
+                                                            forward=fwd32), n=N_TIMED)
     print(f"[timing] layered value+grad f32: {ms_call:.4f} ms/call (host clock, "
           f"synchronized, median of {N_TIMED}) {card}")
 
@@ -1085,45 +1145,13 @@ def drivers_phase(dev, card: str) -> tuple[dict, dict]:
     from waveform_ot_torch import compat_loc_cmt as lc
     from waveform_ot_torch import compat_ricker as ru
     from waveform_ot_torch.models.seismo import moment_tensor_from_sdr, upper_from_mxyz
-    from waveform_ot_torch.ops import cuda_distance
 
     cpu = torch.device("cpu")
     t_phase = time.perf_counter()
     launches, per_call = {}, {}
-    n_counted = [0]
-
-    def counted(fn, want=None, what=""):
-        """fn() with the kernel's launch count set to 0 just before and read
-        just after: (result, launches); raises unless launches == want, when
-        given."""
-        torch.cuda.synchronize()
-        cuda_distance.LAUNCHES = 0
-        out = fn()
-        torch.cuda.synchronize()
-        n = cuda_distance.LAUNCHES
-        n_counted[0] += n
-        if want is not None and n != want:
-            raise AssertionError(f"{what}: {n} kernel launches, not {want}")
-        return out, n
-
-    def hold(name, dev_, bound):
-        print(f"[drivers] {name}: {dev_:.3e} (bound {bound:g})")
-        if not dev_ <= bound:
-            raise AssertionError(f"drivers {name}: {dev_!r} exceeds {bound:g}")
-
-    def timed(name, fn, want):
-        """Host-clock median of fn(); the launches counted over every call of
-        the timing, the warm-up included, must be ``want`` per call."""
-        torch.cuda.synchronize()
-        cuda_distance.LAUNCHES = 0
-        ms = host_median_ms(fn, n=DRIVER_TIMED, warm=1)
-        torch.cuda.synchronize()
-        n = cuda_distance.LAUNCHES / (DRIVER_TIMED + 1)
-        print(f"[timing] drivers {name}: {ms:.4f} ms/call (host clock, synchronized, median "
-              f"of {DRIVER_TIMED}), kernel launches per call {n:g} (counted over the "
-              f"{DRIVER_TIMED + 1} calls) {card}")
-        if n != want:
-            raise AssertionError(f"{name}: {n} kernel launches per timed call, not {want}")
+    checks = PhaseChecks("drivers", card)
+    counted, hold = checks.counted, checks.hold
+    timed = lambda name, fn, want: checks.timed(name, fn, want, DRIVER_TIMED)
 
     def ricker_data(device):
         t, w = ru.rickerwavelet(*RICKER_TRUTH, trange=DRIVER_RICKER_TRANGE, device=device)
@@ -1269,13 +1297,7 @@ def drivers_phase(dev, card: str) -> tuple[dict, dict]:
                                  f"{NR_STUDY * 3} traces")
         hold("compat_loc_cmt inversion on the card, km from LOC", err, DRIVER_LOC_KM)
         lc.init()
-    n_held = sum(held["shapes"].values())
-    print(f"[drivers] launches held bit for bit against distance_field_torch on their card "
-          f"inputs: {n_held}, of {n_counted[0]} counted outside the timing runs; by (B, nt, nu, "
-          f"ntg, dtype) {held['shapes']}; {held['check_s']:.2f} s of checks")
-    if n_held < n_counted[0]:
-        raise AssertionError(f"{n_counted[0] - n_held} of {n_counted[0]} counted launches "
-                             f"went past the check")
+    checks.check_held(held)
 
     timed("compat_ricker.optfunc 40x128", lambda: ru.optfunc(x0, rdata["card"]),
           per_call["ricker_driver_optfunc"])
@@ -1297,6 +1319,228 @@ def drivers_phase(dev, card: str) -> tuple[dict, dict]:
         timed(name, fn, per_call[f"loc_cmt_driver_{key}"])
     lc.init()
     print(f"[drivers] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, per_call
+
+
+def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
+    """Phase 14: the native slice on the card. 14a the fast-marching route of
+    compat.waveformFP.calcpdf against the exact field at the FingerprintLib
+    demo's full size; 14b the POT bridges (exact EMD, entropic Sinkhorn)
+    against the LP oracle, the closed form and the CPU; 14c the zoom L-BFGS:
+    the Ricker on-device inversion in f64 against the CPU's, and the
+    64-start far-field study in f32; 14d top_device_ops on loc64 f32. Every
+    kernel launch outside the timing runs is held bit for bit against the
+    plain field (held_launches); launches are counted and asserted per call.
+    Returns the path's launches and the launches per call."""
+    import types
+
+    import scipy.optimize
+
+    from waveform_ot_torch import compat
+    from waveform_ot_torch.inversion import (
+        InvOptions, loc_cmt_misfit, loc_cmt_value_and_grad, minimize_lbfgs,
+        minimize_multi_start, ricker_misfit,
+    )
+    from waveform_ot_torch.ops import cuda_distance
+    from waveform_ot_torch.ops.validate import build_linprog
+    from waveform_ot_torch.utils.profiling import top_device_ops
+
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    launches, per_call = {}, {}
+    checks = PhaseChecks("native", card)
+    counted, hold = checks.counted, checks.hold
+    timed = lambda name, fn, want: checks.timed(name, fn, want, NATIVE_TIMED)
+
+    t, rf = rf_waveform()
+    grid = rf_grid6()
+    with held_launches("native") as held:
+        # 14a. the fast-marching route at the demo's full size
+        fps = {}
+        for method, want in (("FMM", 0), ("Enumerate", 1)):
+            wfo = compat.waveformFP(t, rf, grid, device=dev)
+            _, n = counted(lambda: wfo.calcpdf(lambdav=RF_LAMBDA, method=method), want,
+                           f"calcpdf({method})")
+            per_call[f"calcpdf_{method.lower()}"] = n
+            fps[method] = wfo
+        fmm_cpu = compat.waveformFP(t, rf, grid, device=cpu)
+        fmm_cpu.calcpdf(lambdav=RF_LAMBDA, method="FMM")
+        exact = fps["Enumerate"].dfield
+        band = exact > 2.0 / RF_NU
+        gap = np.abs(fps["FMM"].dfield - exact)[band]
+        print(f"[native] calcpdf(FMM) {RF_NU}x{RF_NTG}, {RF_NT} samples, on the card: type "
+              f"{fps['FMM'].type!r}, kernel launches {per_call['calcpdf_fmm']}; against the exact "
+              f"field (calcpdf(Enumerate), {per_call['calcpdf_enumerate']} launch) over the band "
+              f"d > 2/nu ({band.mean():.4f} of the grid): median |d| {np.median(gap):.6e}, max "
+              f"{gap.max():.6e}")
+        hold("FMM vs exact field, median |d| over d > 2/nu", float(np.median(gap)),
+             FMM_MEDIAN_BOUND)
+        hold("FMM vs exact field, max |d| over d > 2/nu", float(gap.max()), FMM_MAX_BOUND)
+        hold("calcpdf(FMM) pdf, card vs cpu, max abs",
+             float(np.abs(fps["FMM"].pdf - fmm_cpu.pdf).max()), PDF_ATOL)
+        xw, yw = compat.calcFMM_dist_deriv(fps["FMM"].dfield, fps["FMM"].delgrid)
+        print(f"[native] calcFMM_dist_deriv: ray end points {xw.shape}, finite "
+              f"{bool(np.isfinite(xw).all() and np.isfinite(yw).all())}")
+        if xw.shape != exact.shape or not (np.isfinite(xw).all() and np.isfinite(yw).all()):
+            raise AssertionError("calcFMM_dist_deriv's ray end points are not finite")
+        launches["native_fmm"] = per_call["calcpdf_enumerate"]
+
+        # 14b. the POT bridges on the migration waveforms and on 1-D densities
+        tm, pred, obs, g6 = migration_waveforms()
+        pgrid = (*g6[:4], *POT_GRID)
+        wfs, launches["native_pot"] = counted(
+            lambda: fingerprint_pdfs(tm, [pred, obs], pgrid, RF_LAMBDA, dev), 2,
+            "the POT pair's fingerprints")
+        ot = {"card": [compat.OTpdf((w.pdf, w.pos), dev) for w in wfs],
+              "cpu": [compat.OTpdf((w.pdf, w.pos), cpu)
+                      for w in fingerprint_pdfs(tm, [pred, obs], pgrid, RF_LAMBDA, cpu)]}
+        emd = {}
+        for dist, p in (("W2", 2), ("W1", 1)):
+            t0 = time.perf_counter()
+            emd[dist] = compat.wasserPOT(*ot["card"], dist)[0]
+            emd_s = time.perf_counter() - t0
+            flat = [types.SimpleNamespace(pdf=o.pdf.ravel(), x=o.x.reshape(-1, 2))
+                    for o in ot["card"]]
+            lp_default = compat.Wasser_LinProg(*flat, distfunc=dist)[0]
+            c, a_eq, b_eq = build_linprog(flat[0].pdf, flat[0].x, flat[1].pdf, flat[1].x, p)
+            lp = scipy.optimize.linprog(
+                c, A_eq=a_eq[:-1], b_eq=b_eq[:-1], method="highs",
+                options={"primal_feasibility_tolerance": LP_FEASIBILITY,
+                         "dual_feasibility_tolerance": LP_FEASIBILITY})
+            if not lp.success:
+                raise AssertionError(f"the {dist} LP oracle failed: {lp.message}")
+            print(f"[native] wasserPOT {dist}, {POT_GRID[0]}x{POT_GRID[1]} fingerprints: "
+                  f"{emd[dist]!r} ({emd_s:.3f} s, one run); LP at feasibility "
+                  f"{LP_FEASIBILITY:g} {lp.fun!r}; Wasser_LinProg at HiGHS's defaults "
+                  f"{lp_default!r}")
+            hold(f"wasserPOT {dist} vs the LP oracle at feasibility {LP_FEASIBILITY:g}, relative",
+                 abs(emd[dist] - lp.fun) / abs(lp.fun), POT_RTOL)
+            hold(f"wasserPOT {dist} vs Wasser_LinProg at HiGHS's defaults, relative",
+                 abs(emd[dist] - lp_default) / abs(lp_default), LINPROG_DEFAULT_RTOL)
+        rng = np.random.default_rng(14)
+        one_d = [compat.OTpdf((rng.random(POT_1D) + 0.1, np.sort(rng.random(POT_1D))), dev)
+                 for _ in range(2)]
+        w1d = compat.wasserPOT(*one_d, "W2")[0]
+        closed = compat.wasser(*one_d, "W2")[0]
+        hold(f"wasserPOT W2 vs the closed-form wasser, {POT_1D}-point 1-D pair, relative",
+             abs(w1d - closed) / abs(closed), POT_RTOL)
+        gaps = []
+        for gamma in SINKHORN_POT_GAMMAS:
+            got = compat.sinkhornPOT(*ot["card"], "W2", gamma=gamma, returnplan=True)
+            ref = compat.sinkhornPOT(*ot["cpu"], "W2", gamma=gamma, returnplan=True)
+            hold(f"sinkhornPOT gamma {gamma:g} card vs cpu (value, plan), relative",
+                 _nested_dev(got, ref), SINKHORN_POT_RTOL)
+            gaps.append(abs(got[0] - emd["W2"]))
+        print(f"[native] sinkhornPOT - EMD at gamma {list(SINKHORN_POT_GAMMAS)}: {gaps}")
+        if not gaps[0] > gaps[1] > gaps[2]:
+            raise AssertionError(f"the entropic gap to the EMD does not fall with gamma: {gaps}")
+
+        # 14c(i). the Ricker on-device inversion in float64: the full solve on the
+        # card against the truth; card against CPU over its first iterations
+        inv, calls = {}, {}
+        for where, device, iters in (("card", dev, ZOOM_RICKER_ITERS),
+                                     ("card", dev, ZOOM_RICKER_HELD),
+                                     ("cpu", cpu, ZOOM_RICKER_HELD)):
+            rp, rc, x0 = build_ricker_inversion(f64, device)
+            fun = CountedObjective(lambda ms, rp=rp, rc=rc: ricker_misfit(ms, rp, rc))
+            t0, c0 = time.perf_counter(), held["check_s"]
+            res, n = counted(lambda: minimize_lbfgs(fun, x0, max_iter=iters))
+            wall = (time.perf_counter() - t0 - (held["check_s"] - c0)) * 1e3
+            inv[where, iters], calls[where, iters] = res, fun.value_grads
+            print(f"[native] zoom minimize_lbfgs Ricker f64 on the {where}, max_iter {iters}: x "
+                  f"{res.x.tolist()} after {int(res.n_iter)} iterations, {fun.value_grads} "
+                  f"value+grad calls ({fun.values} value-only), w2 {res.fun.item()!r}, |g| "
+                  f"{res.grad_norm.item():.3e}, kernel launches {n}, {wall:.1f} ms (host clock, "
+                  f"one run, the launch checks' time taken out) {card}")
+            if where == "card":
+                if n != fun.value_grads or fun.values:
+                    raise AssertionError(f"zoom Ricker: {n} launches for {fun.value_grads} "
+                                         f"value+grad calls and {fun.values} value calls")
+                launches[f"native_zoom_ricker_{iters}it"] = n
+                per_call["native_zoom_ricker"] = n / fun.value_grads
+        xc = inv["card", ZOOM_RICKER_ITERS].x.cpu().numpy()
+        hold(f"zoom Ricker on the card, max_iter {ZOOM_RICKER_ITERS}, max |x - truth|",
+             float(np.abs(xc - np.asarray(RICKER_TRUTH)).max()), RICKER_TRUTH_TOL)
+        held_c, held_h = inv["card", ZOOM_RICKER_HELD], inv["cpu", ZOOM_RICKER_HELD]
+        hold(f"zoom Ricker card vs cpu, max_iter {ZOOM_RICKER_HELD}, max |x diff|",
+             float(np.abs(held_c.x.cpu().numpy() - held_h.x.numpy()).max()), RICKER_X_TOL)
+        if (int(held_c.n_iter), calls["card", ZOOM_RICKER_HELD]) != (
+                int(held_h.n_iter), calls["cpu", ZOOM_RICKER_HELD]):
+            raise AssertionError(f"zoom Ricker over {ZOOM_RICKER_HELD} iterations: "
+                                 f"{int(held_c.n_iter)} iterations and "
+                                 f"{calls['card', ZOOM_RICKER_HELD]} calls on the card, "
+                                 f"{int(held_h.n_iter)} and {calls['cpu', ZOOM_RICKER_HELD]} "
+                                 f"on the cpu")
+
+        # 14c(ii). the 64-start far-field study through the zoom, float32
+        _, cfg11, prob11 = build_loc64_problem(NR_STUDY, f32, dev)
+        opts = InvOptions(loc=True, cmt=False, mistype="OT")
+        misfit11 = lambda ms: loc_cmt_misfit(ms, prob11, opts, cfg11)
+        starts = study_starts(f32, dev)
+        solve = lambda f: minimize_multi_start(f, starts, max_iter=30, tol=3e-5, method="zoom")
+        fun = CountedObjective(misfit11)
+        res, n = counted(lambda: solve(fun))
+        err = torch.linalg.vector_norm(res.x.double() - torch.tensor(LOC, dtype=f64, device=dev),
+                                       dim=1)
+        launches["native_zoom_study"] = n
+        per_call["native_zoom_study"] = n / fun.value_grads
+        if n != fun.value_grads or fun.values:
+            raise AssertionError(f"zoom study: {n} launches for {fun.value_grads} value+grad "
+                                 f"calls and {fun.values} value calls")
+    checks.check_held(held)
+
+    # float32 sums by atomics may end a timed study after other calls: count them
+    tfun = CountedObjective(misfit11)
+    torch.cuda.synchronize()
+    cuda_distance.LAUNCHES = 0
+    study_ms = host_median_ms(lambda: solve(tfun), n=STUDY_TIMED, warm=0)
+    torch.cuda.synchronize()
+    if cuda_distance.LAUNCHES != tfun.value_grads or tfun.values:
+        raise AssertionError(f"timed zoom studies: {cuda_distance.LAUNCHES} launches for "
+                             f"{tfun.value_grads} value+grad and {tfun.values} value calls")
+    print(f"[native] zoom study: {N_STARTS} starts, {NR_STUDY} stations, f32: {study_ms:.4f} ms "
+          f"per study (host clock, synchronized, median of {STUDY_TIMED}) against "
+          f"{batched_study_ms:.4f} ms for method 'batched' (phase 6, this run); iterations max "
+          f"{int(res.n_iter.max())}, median {float(res.n_iter.float().median()):g}; batched "
+          f"value+grad calls {fun.value_grads} (timed runs {tfun.value_grads / STUDY_TIMED:g} "
+          f"per study), kernel launches {launches['native_zoom_study']}; "
+          f"distance to the source max {err.max().item():.6f} km, median "
+          f"{err.median().item():.6f} km (bound {STUDY_RADIUS_KM:g}) {card}")
+    if not bool((err < STUDY_RADIUS_KM).all()):
+        far = torch.nonzero(err >= STUDY_RADIUS_KM).flatten().tolist()
+        raise AssertionError(f"zoom study: starts {far} end up to {err.max().item()} km from "
+                             f"the source")
+    timed(f"calcpdf(FMM) {RF_NU}x{RF_NTG}",
+          lambda: fps["FMM"].calcpdf(lambdav=RF_LAMBDA, method="FMM"), 0)
+    timed(f"calcpdf(Enumerate) {RF_NU}x{RF_NTG}",
+          lambda: fps["Enumerate"].calcpdf(lambdav=RF_LAMBDA, method="Enumerate"), 1)
+    timed(f"wasserPOT W2 {POT_GRID[0]}x{POT_GRID[1]}",
+          lambda: compat.wasserPOT(*ot["card"], "W2"), 0)
+    timed(f"sinkhornPOT W2 {POT_GRID[0]}x{POT_GRID[1]} gamma {SINKHORN_POT_GAMMAS[-1]:g}",
+          lambda: compat.sinkhornPOT(*ot["card"], "W2", gamma=SINKHORN_POT_GAMMAS[-1]), 0)
+
+    # 14d. the profiler's view of loc64 f32: the value+grad call (the headline;
+    # there the kernel is ~5% of device time, near the fifth op) and its
+    # forward alone, where the top five must hold the kernel
+    _, cfg64, prob64 = build_loc64_problem(64, f32, dev)
+    m64 = torch.tensor(LOC, dtype=f32, device=dev) + torch.tensor(DM, dtype=f32, device=dev)
+    for what, call, top_five in (
+            ("value+grad", lambda: loc_cmt_value_and_grad(m64, prob64, opts, cfg64), False),
+            ("value", lambda: loc_cmt_misfit(m64, prob64, opts, cfg64), True)):
+        ranked, _ = counted(lambda: top_device_ops(call, top=ALL_OPS), 2,
+                            f"top_device_ops on loc64 {what} (a warm-up call and a profiled one)")
+        for ms, name in ranked[:TOP_OPS]:
+            print(f"[native] top_device_ops loc64 f32 {what}: {ms:.4f} ms  {name[:110]}")
+        rank = [i for i, (_, name) in enumerate(ranked) if KERNEL_NAME in name]
+        print(f"[native] top_device_ops loc64 f32 {what}: the distance-field kernel ranks "
+              f"{rank[0] + 1 if rank else None} of {len(ranked)} device ops by time"
+              + (f", {ranked[rank[0]][0]:.4f} ms" if rank else ""))
+        if not rank:
+            raise AssertionError(f"the profile of loc64 {what} holds no distance-field kernel")
+        if top_five and rank[0] >= TOP_OPS:
+            raise AssertionError(f"the distance-field kernel is not among loc64 {what}'s top "
+                                 f"{TOP_OPS} device ops")
+    print(f"[native] phase {time.perf_counter() - t_phase:.1f} s")
     return launches, per_call
 
 
@@ -1415,16 +1659,17 @@ def main() -> int:
     m64 = m32.double()
     for name, fn in (("f32", lambda: loc_cmt_value_and_grad(m32, prob32, opts, cfg)),
                      ("f64", lambda: loc_cmt_value_and_grad(m64, prob64, opts, cfg))):
-        print(f"[timing] loc64 value+grad {name}: {host_median_ms(fn):.4f} ms/call "
+        print(f"[timing] loc64 value+grad {name}: {host_median_ms(fn, n=N_TIMED):.4f} ms/call "
               f"(host clock, synchronized, median of {N_TIMED}) {card}")
     rows = []
     for dt, by_name in shapes.items():
         for name, args in by_name.items():
             n_k = BACK_TO_BACK_BY_SHAPE.get(name, BACK_TO_BACK)
-            k = device_ms(lambda: cuda_distance.distance_field_cuda(*args), launches=n_k)
+            k = device_ms(lambda: cuda_distance.distance_field_cuda(*args), launches=n_k,
+                          samples=SAMPLES)
             if name in PLAIN_ONCE:
                 torch.cuda.synchronize()
-                plain = _events_ms(lambda: distance_field_torch(*args))
+                plain = events_ms(lambda: distance_field_torch(*args))
                 plain_how = "one call, one event pair"
             else:
                 plain = device_ms(lambda: distance_field_torch(*args),
@@ -1445,7 +1690,7 @@ def main() -> int:
     misfit11 = lambda ms: loc_cmt_misfit(ms, prob11, opts, cfg11)
     loc_d = torch.tensor(LOC, dtype=torch.float64, device=dev)
     starts = study_starts(torch.float32, dev)
-    per_eval = {}
+    per_eval, study_ms_by = {}, {}
     for name, solve in (
             ("multistart", lambda f: minimize_multi_start(f, starts, max_iter=30, tol=3e-5)),
             ("multistart_host", lambda f: minimize_lbfgs_batched_host(
@@ -1460,7 +1705,8 @@ def main() -> int:
         per_eval[name] = launches[name] / evals
         err = torch.linalg.vector_norm(res.x.double() - loc_d, dim=1)
         n_failed = int(res.ls_failed.sum())
-        study_ms = host_median_ms(lambda: solve(misfit11), n=STUDY_TIMED, warm=0)
+        study_ms = study_ms_by[name] = host_median_ms(lambda: solve(misfit11), n=STUDY_TIMED,
+                                                      warm=0)
         print(f"[{name}] {N_STARTS} starts, {NR_STUDY} stations, f32: {study_ms:.4f} ms "
               f"per study (host clock, synchronized, median of {STUDY_TIMED}); outer "
               f"iterations {fun.value_grads - 1}, line-search trials {fun.values}, batched "
@@ -1562,6 +1808,10 @@ def main() -> int:
     drivers, drivers_per_call = drivers_phase(dev, card)
     launches.update(drivers)
 
+    # 14. the native slice: fast marching, the POT bridges, the zoom L-BFGS
+    native, native_per_call = native_phase(dev, card, study_ms_by["multistart"])
+    launches.update(native)
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -1571,7 +1821,7 @@ def main() -> int:
         "launches_per_call": {"loc64": launches["loc64"], "ricker": launches["ricker"],
                               "scan": launches["scan"], "layered": launches["layered"],
                               "layered_scan": launches["layered_scan"], **per_eval,
-                              **toolbox_per_call, **drivers_per_call},
+                              **toolbox_per_call, **drivers_per_call, **native_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

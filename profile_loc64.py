@@ -47,21 +47,19 @@ import collections
 import contextlib
 import subprocess
 import sys
-import time
 
 import torch
 from torch.autograd import DeviceType
 
 from chip_smoke import (
-    DM, NR_STUDY, RF_LAMBDA, RF_SHIFT, SINKHORN_ITERS, SINKHORN_SIGMA_PX, TOOLBOX_NPROJ,
+    DM, KERNEL_NAME, NR_STUDY, RF_LAMBDA, RF_SHIFT, SINKHORN_ITERS, SINKHORN_SIGMA_PX,
+    TOOLBOX_NPROJ,
     build_layered_problem, build_loc64_problem, fingerprint_pdfs, migration_waveforms,
     rf_grid6, rf_waveform, scan_axes, scan_nodes, study_starts,
 )
+from waveform_ot_torch.utils.profiling import LAUNCH_CALLS, device_trace
 
 WORKLOADS = ("loc64", "scan", "study", "layered", "layered_scan", "layered_ms", "toolbox")
-KERNEL = "distance_field_kernel"
-# launch calls of the CUDA runtime and of the cu* API (which cuBLAS uses)
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 def _busy_us(intervals) -> float:
@@ -149,7 +147,7 @@ def stage_breakdown(dev, sources, smi: str):
         inside = [e for e in dev_ev if r.time_range.start <= e.time_range.start
                   < r.time_range.end]
         us = _busy_us((e.time_range.start, e.time_range.end) for e in inside)
-        kern = sum(e.time_range.elapsed_us() for e in inside if KERNEL in e.name)
+        kern = sum(e.time_range.elapsed_us() for e in inside if KERNEL_NAME in e.name)
         print(f"[stages] {100 * us / busy:5.1f}%  {us / 1e3:9.4f} ms device busy, "
               f"{r.time_range.elapsed_us() / 1e3:9.4f} ms host clock, {len(inside):6d} device "
               f"ops  {r.name}" + (f"; distance-field kernel {kern / 1e3:.4f} ms "
@@ -237,18 +235,8 @@ def profile(call, warm: int, calls: int, what: str, smi: str) -> str:
     summary lines and return the profiler's full table."""
     for _ in range(warm):
         call()
-    torch.cuda.synchronize()
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-
+    prof, dev_ev, wall_ms = device_trace(call, calls)
     events = prof.events()
-    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not dev_ev:
         raise RuntimeError("the profiler recorded no device time")
     busy_ms = _busy_us((e.time_range.start, e.time_range.end) for e in dev_ev) / 1e3

@@ -30,8 +30,6 @@ jw = importlib.import_module("waveform_ot_tpu.ops.wasser")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
 CLOSED = 1e-10
-# not ported yet: they need fast marching and POT (ops/fmm, ops/pot_bridge)
-NOT_PORTED = {"wasserPOT", "sinkhornPOT", "calcFMM_dist_deriv"}
 
 
 @pytest.fixture(autouse=True)
@@ -114,8 +112,7 @@ def _reference_names():
         elif isinstance(node, ast.Assign):
             names.update(t.id for t in ast.walk(node) if isinstance(t, ast.Name)
                          and isinstance(t.ctx, ast.Store))
-    return sorted(n for n in names if n not in NOT_PORTED and (not n.startswith("_")
-                                                              or n.startswith("_check")))
+    return sorted(n for n in names if not n.startswith("_") or n.startswith("_check"))
 
 
 def test_every_compat_name_resolves():
@@ -126,8 +123,7 @@ def test_every_compat_name_resolves():
     for method in ("calcpdf", "wdistderiv", "PDFderiv", "PDFderivMarg"):
         assert callable(getattr(tc.waveformFP, method))
     assert "plotPDFsurface" in names and "trim_axs" in names
-    for name in NOT_PORTED:
-        assert not hasattr(tc, name), f"{name} is not ported yet"
+    assert {"wasserPOT", "sinkhornPOT", "calcFMM_dist_deriv"} <= set(names)
 
 
 def test_exception_spellings_are_the_same_classes():
@@ -372,8 +368,6 @@ def test_calcpdf_errors():
     jf, tf = _fps(4)
     with pytest.raises(tc.WaveformFPderivError):
         tf.wdistderiv()
-    with pytest.raises(tc.FingerprintMethodError, match="not ported"):
-        tf.calcpdf(method="FMM")
     with pytest.raises(tc.FingerprintMethodError):
         tf.calcpdf(method="Pallas")
     tf.calcpdf(lambdav=0.05)

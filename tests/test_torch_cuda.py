@@ -462,3 +462,58 @@ def test_distance_field_nn_on_card_equals_cpu(monkeypatch, chunk):
     np.testing.assert_allclose(nn[0][0], nn[1][0], rtol=np.finfo(np.float64).eps, atol=0)
     for x, y in zip(nn[0][1:], nn[1][1:]):
         np.testing.assert_array_equal(x, y)
+
+
+def test_zoom_solver_launches_once_per_trial():
+    """minimize_multi_start(method="zoom") on the card: every zoom trial is
+    one batched value+grad call and one kernel launch (no value-only calls),
+    and the solver reads the device once per outer check and once per
+    line-search check: over 4 outer iterations (tol 0 keeps every lane
+    active), 5 outer reads and, per line search, one per trial and one that
+    ends it; counted by torch's sync debug mode."""
+    import warnings
+
+    from chip_smoke import LOC, build_loc64_problem
+    from waveform_ot_torch.inversion import loc_cmt_misfit, minimize_multi_start
+
+    dev = torch.device("cuda")
+    _, cfg, prob = build_loc64_problem(4, torch.float32, dev)
+    starts = torch.tensor(LOC, device=dev) + torch.tensor(
+        [[3.0, -2.0, 1.0], [-4.0, 1.0, 2.0], [1.0, 4.0, -3.0]], device=dev)
+    calls = {"value": 0, "value_grad": 0}
+
+    def fun(ms):
+        calls["value_grad" if torch.is_grad_enabled() else "value"] += 1
+        return loc_cmt_misfit(ms, prob, InvOptions(), cfg)
+
+    torch.cuda.synchronize()
+    before = cuda_distance.LAUNCHES
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = minimize_multi_start(fun, starts, max_iter=4, tol=0.0, method="zoom")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    trials = calls["value_grad"] - 1                 # the first call is the starts'
+    assert calls["value"] == 0 and res.n_iter.tolist() == [4, 4, 4] and res.ls_failed is None
+    assert len(syncs) == (4 + 1) + (trials + 4), syncs
+    assert cuda_distance.LAUNCHES - before == calls["value_grad"]
+
+
+def test_calcpdf_fmm_on_card_matches_cpu():
+    """calcpdf(method="FMM") on a card object: no kernel launch (the field is
+    host C++), the field and pdf within 1e-12 of the CPU object's."""
+    from waveform_ot_torch import compat
+
+    t = np.linspace(0.0, 1.0, 120)
+    w = 2 * np.sin(6 * np.pi * t) - 3 * np.cos((2 * t + 0.3) * 2 * np.pi)
+    grid = (0.0, 1.0, -6.5, 6.5, 60, 80)
+    before = cuda_distance.LAUNCHES
+    card, cpu = (compat.waveformFP(t, w, grid, device=d) for d in ("cuda", "cpu"))
+    card.calcpdf(lambdav=0.04, method="FMM")
+    assert cuda_distance.LAUNCHES == before and card.type == "FMM"
+    cpu.calcpdf(lambdav=0.04, method="FMM")
+    np.testing.assert_allclose(card.dfield, cpu.dfield, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(card.pdf, cpu.pdf, rtol=0, atol=1e-12)

@@ -6,6 +6,7 @@ states its tolerance.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -180,16 +181,28 @@ def _nan_t(xs):
 SOLVERS = {
     "batched": (jlbfgs.minimize_lbfgs_batched, ti.minimize_lbfgs_batched),
     "host": (jlbfgs.minimize_lbfgs_batched_host, ti.minimize_lbfgs_batched_host),
+    "zoom": (functools.partial(jlbfgs.minimize_multi_start, method="zoom"),
+             functools.partial(ti.minimize_multi_start, method="zoom")),
 }
 
 
 def _solve_both(solver: str, fj, ft, x0, **kw):
+    """JAX's solver (jitted, but for the host form) and the port's on the
+    same starts; JAX's result as NumPy."""
     jsolve, tsolve = SOLVERS[solver]
-    if solver == "batched":
-        ref = jax.jit(lambda xs: jsolve(fj, xs, **kw))(jnp.asarray(x0))
-    else:
+    if solver == "host":
         ref = jsolve(fj, jnp.asarray(x0), **kw)
+    else:
+        ref = jax.jit(lambda xs: jsolve(fj, xs, **kw))(jnp.asarray(x0))
     return jax.tree_util.tree_map(np.asarray, ref), tsolve(ft, torch.tensor(x0), **kw)
+
+
+def _assert_same_flags(got, ref):
+    """ls_failed as JAX's: equal, or None in both (the zoom's)."""
+    if ref.ls_failed is None:
+        assert got.ls_failed is None
+    else:
+        np.testing.assert_array_equal(got.ls_failed.numpy(), ref.ls_failed)
 
 
 @pytest.mark.parametrize("solver", list(SOLVERS))
@@ -215,34 +228,61 @@ def test_solver_rosenbrock_matches_jax(solver):
     ref, got = _solve_both(solver, _rosen_j, _rosen_t, X0[:, :4], max_iter=400, tol=1e-6)
     np.testing.assert_allclose(got.x.numpy(), ref.x, rtol=0, atol=1e-8)
     np.testing.assert_array_equal(got.n_iter.numpy(), ref.n_iter)
-    np.testing.assert_array_equal(got.ls_failed.numpy(), ref.ls_failed)
+    _assert_same_flags(got, ref)
 
 
 @pytest.mark.parametrize("solver", list(SOLVERS))
 def test_solver_flags_nan_lane_like_jax(solver):
-    """A lane starting where the objective is NaN is failed and stays at its
-    start; the healthy lane converges; ls_failed equals JAX's."""
+    """A lane starting where the objective is NaN stays at its start; the
+    healthy lane converges; ls_failed equals JAX's: the batched solvers fail
+    the NaN lane, the zoom (whose search fails and takes the zero safe step)
+    leaves ls_failed None and stops that lane after one iteration, as JAX's
+    vmapped zoom does."""
     x0 = np.array([[0.0, 0.0], [5.0, 0.0]])
     ref, got = _solve_both(solver, _nan_j, _nan_t, x0, max_iter=50, tol=1e-8)
-    np.testing.assert_array_equal(got.ls_failed.numpy(), ref.ls_failed)
-    assert got.ls_failed.tolist() == [False, True]
+    _assert_same_flags(got, ref)
+    if solver == "zoom":
+        np.testing.assert_array_equal(got.n_iter.numpy(), ref.n_iter)
+        assert got.n_iter[1] == 1 and np.isnan(got.fun[1].item())
+    else:
+        assert got.ls_failed.tolist() == [False, True]
     np.testing.assert_allclose(got.x[0].numpy(), [1.0, 1.0], atol=1e-6)
     np.testing.assert_array_equal(got.x[1].numpy(), x0[1])
 
 
-@pytest.mark.parametrize("solver", ["multi_start", "host"])
+def test_minimize_lbfgs_single_start_matches_jax():
+    """minimize_lbfgs from one start of the quadratic (the port's batched
+    objective called with k = 1) against JAX's: the same iterations, x within
+    1e-10, and fields without a lane axis."""
+    ref = jax.jit(lambda x: jlbfgs.minimize_lbfgs(_quad_j, x, max_iter=100, tol=1e-10))(
+        jnp.asarray(X0[3]))
+    got = ti.minimize_lbfgs(_quad_t, torch.tensor(X0[3]), max_iter=100, tol=1e-10)
+    assert got.x.shape == (5,) and got.fun.dim() == 0 and got.ls_failed is None
+    assert int(got.n_iter) == int(ref.n_iter)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got.grad_norm.item(), float(ref.grad_norm), rtol=1e-6,
+                               atol=1e-14)
+
+
+@pytest.mark.parametrize("solver", ["multi_start", "host", "zoom"])
 def test_loc_l2_multistart_matches_jax_host(problem, solver):
     """Three starts of the loc L2 inversion, the port's batched objective
-    through each port solver against JAX's host solver: x within 1e-6, the
-    same iteration counts, every lane at the source (0.5 km)."""
+    through each port solver against JAX's host solver (the zoom against
+    JAX's vmapped zoom): x within 1e-6, the same iteration counts, every lane
+    at the source (0.5 km)."""
     cfg, prob, tcfg, tprob = problem
     starts = LOC + np.array([[5.0, 4.0, -3.0], [-6.0, 2.0, 5.0], [3.0, -8.0, 2.0]])
     l2 = ji.InvOptions(mistype="L2")
-    ref = jlbfgs.minimize_lbfgs_batched_host(
-        lambda m: ji.loc_cmt_misfit(m, prob, l2, cfg), jnp.asarray(starts), max_iter=60)
+    jfun = lambda m: ji.loc_cmt_misfit(m, prob, l2, cfg)
+    if solver == "zoom":
+        ref = jax.jit(lambda xs: jlbfgs.minimize_multi_start(jfun, xs, max_iter=60,
+                                                             method="zoom"))(jnp.asarray(starts))
+    else:
+        ref = jlbfgs.minimize_lbfgs_batched_host(jfun, jnp.asarray(starts), max_iter=60)
     tfun = lambda ms: ti.loc_cmt_misfit(ms, tprob, ti.InvOptions(mistype="L2"), tcfg)
     tsolve = {"multi_start": ti.minimize_multi_start,
-              "host": ti.minimize_lbfgs_batched_host}[solver]
+              "host": ti.minimize_lbfgs_batched_host,
+              "zoom": SOLVERS["zoom"][1]}[solver]
     got = tsolve(tfun, torch.tensor(starts), max_iter=60)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(got.n_iter.numpy(), np.asarray(ref.n_iter))

@@ -126,7 +126,6 @@ def test_error_spellings_and_messages():
     assert terr.WaveformPFderivError is terr.WaveformFPderivError
     assert terr.FMMlibraryError is terr.FMMLibraryError
     assert str(terr.FingerprintMethodError("x")) == str(jerr.FingerprintMethodError("x"))
-    assert "not ported" in str(terr.FingerprintMethodError("FMM", "not ported yet"))
 
 
 def test_density_2d_and_marginals_match_jax():

@@ -8,6 +8,7 @@ numbers, those numbers against the JAX package's).
 
 import json
 import pickle
+import time
 
 import matplotlib
 import numpy as np
@@ -20,12 +21,15 @@ from waveform_ot_torch import compat as tc  # noqa: E402
 from waveform_ot_torch import compat_loc_cmt as tlc  # noqa: E402
 from waveform_ot_torch import compat_ricker as tru  # noqa: E402
 from waveform_ot_torch import viz  # noqa: E402
+from waveform_ot_torch.ops import fmm as tfmm  # noqa: E402
 from waveform_ot_torch.ops.fingerprint import DistanceField  # noqa: E402
 from waveform_ot_torch.ops.otpdf import make_density_1d  # noqa: E402
-from waveform_ot_torch.utils import io  # noqa: E402
+from waveform_ot_torch import utils  # noqa: E402
+from waveform_ot_torch.utils import io, profiling  # noqa: E402
 from waveform_ot_tpu import compat as jc  # noqa: E402
 from waveform_ot_tpu import compat_loc_cmt as jlc  # noqa: E402
 from waveform_ot_tpu.ops.fmm import signed_indicator  # noqa: E402
+from waveform_ot_tpu import utils as jutils  # noqa: E402
 from waveform_ot_tpu.utils import io as jio  # noqa: E402
 
 CPU = "cpu"
@@ -113,6 +117,50 @@ def test_compat_io_wrappers(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# utils.profiling
+# ---------------------------------------------------------------------------
+
+
+def test_stage_timer_sums_repeated_stages():
+    """A stage timed twice holds the sum of both spans; stop() without a
+    running stage changes nothing."""
+    timer = profiling.StageTimer()
+    spans = []
+    for name in ("fp", "ot", "fp"):
+        timer.start(name)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 2e-3:
+            pass
+        spans.append((name, timer.stop()[name]))
+    stages = timer.stop()
+    assert set(stages) == {"fp", "ot"}
+    assert stages["fp"] > spans[0][1] >= 2e-3 and stages["ot"] >= 2e-3
+    for name in ("StageTimer", "benchmark", "top_device_ops"):    # JAX's utils exports
+        assert getattr(utils, name) is getattr(profiling, name) and hasattr(jutils, name)
+
+
+def test_benchmark_is_positive_and_calls_as_asked():
+    """benchmark times n_iter calls after warmup calls, on the CPU without a
+    synchronize, and returns seconds per call."""
+    calls = []
+    x = torch.linspace(0.0, 1.0, 4096, dtype=F64)
+    sec = utils.benchmark(lambda a: calls.append(1) or torch.sin(a).sum(), x, n_iter=7, warmup=2)
+    assert sec > 0.0 and len(calls) == 9
+
+
+def test_top_device_ops_names_real_operators():
+    """On the CPU the ranking is by the operators' self time: names of aten
+    operators, times positive and descending, at most ``top`` of them."""
+    a = torch.randn(96, 96, dtype=F64)
+    top = utils.top_device_ops(lambda m: torch.sin(m @ m).sum(), a, top=3)
+    assert 1 <= len(top) <= 3
+    names = [name for _, name in top]
+    assert "aten::mm" in names and all(n.startswith("aten::") for n in names)
+    times = [ms for ms, _ in top]
+    assert times == sorted(times, reverse=True) and times[-1] > 0.0
+
+
+# ---------------------------------------------------------------------------
 # viz
 # ---------------------------------------------------------------------------
 
@@ -197,9 +245,11 @@ def test_viz_draws_from_tensors(tmp_path, name):
 
 
 def test_signed_indicator_matches_jax():
-    """plot_phi's default field is the JAX package's signed_indicator."""
+    """plot_phi's default field, ops.fmm.signed_indicator, is the JAX
+    package's signed_indicator."""
     verts, tg, ug, _ = _field()
-    np.testing.assert_array_equal(viz._signed_indicator(verts[:, 0], verts[:, 1], tg, ug),
+    assert viz.signed_indicator is tfmm.signed_indicator
+    np.testing.assert_array_equal(tfmm.signed_indicator(verts[:, 0], verts[:, 1], tg, ug),
                                   signed_indicator(verts[:, 0].numpy(), verts[:, 1].numpy(),
                                                    tg.numpy(), ug.numpy()))
 

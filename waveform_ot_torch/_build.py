@@ -1,14 +1,17 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's native libraries at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled at first use into a shared library with
-a plain C interface, ``_build/<name>-<hash>.so``, where the hash covers the
-source and the compiler flags, so an edited source or flag set builds anew
-and an unchanged one is reused. The library is loaded with ``ctypes``; the
-caller declares each function's ``argtypes``. What ``ptxas -v`` reported for
-each kernel (registers, shared memory, spills) is kept beside the library
-and read back by :func:`ptxas_log`.
+One compile-and-cache path, :func:`build_library`, serves both toolchains:
+the CUDA kernels ``csrc/<name>.cu`` (nvcc, :data:`NVCC_FLAGS`) and the host
+C++ solvers ``native/src/wotnative.cpp`` (g++, :data:`GXX_FLAGS`). Each source
+is compiled into a shared library with a plain C interface,
+``_build/<stem>-<hash>.so``, where the hash covers the source and the compiler
+flags, so an edited source or flag set builds anew and an unchanged one is
+reused. The library is loaded with ``ctypes``; the caller declares each
+function's ``argtypes``. What the compiler printed is kept beside the library
+(``<stem>-<hash>.log.txt``); for nvcc that is ``ptxas -v``'s registers, shared
+memory and spills of each kernel, read back by :func:`ptxas_log`.
 
-A missing ``nvcc`` or a failed compile raises :class:`KernelBuildError`.
+A missing compiler or a failed compile raises :class:`KernelBuildError`.
 Nothing here substitutes another implementation.
 """
 
@@ -22,6 +25,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Callable
 
 _SRC_DIR = Path(__file__).parent / "csrc"
 _BUILD_DIR = Path(__file__).parent / "_build"
@@ -30,10 +34,12 @@ _CUDA_DEFAULT_HOME = Path("/usr/local/cuda")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+BUILD_TIMEOUT_S = 600
 
 
 class KernelBuildError(RuntimeError):
-    """A CUDA kernel library could not be compiled or loaded."""
+    """A native library could not be compiled or loaded."""
 
 
 def find_nvcc() -> str:
@@ -54,37 +60,59 @@ def find_nvcc() -> str:
         f"{_CUDA_DEFAULT_HOME / 'bin'}); the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed by source and flags."""
-    src = _SRC_DIR / f"{name}.cu"
+def find_gxx() -> str:
+    """Path of g++ on PATH."""
+    found = shutil.which("g++")
+    if found is None:
+        raise KernelBuildError("g++ not found on PATH; the native solvers need a C++ compiler")
+    return found
+
+
+def cached_path(src: Path, flags: tuple[str, ...]) -> Path:
+    """Where the build of ``src`` with ``flags`` lives, keyed by both."""
     h = hashlib.sha1(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    h.update(" ".join(flags).encode())
+    return _BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its build exists; return the .so path."""
-    out = library_path(name)
+def build_library(src: Path, find_compiler: Callable[[], str],
+                  flags: tuple[str, ...]) -> Path:
+    """Compile ``src`` with ``flags`` unless its build exists; return the .so path."""
+    out = cached_path(src, flags)
     if out.exists():
         return out
-    nvcc = find_nvcc()
+    compiler = find_compiler()
     out.parent.mkdir(parents=True, exist_ok=True)
     # build under a temporary name and rename: concurrent processes may race
     fd, tmp_name = tempfile.mkstemp(dir=out.parent, suffix=".so")
     os.close(fd)
     tmp = Path(tmp_name)
-    cmd = [nvcc, *NVCC_FLAGS, str(_SRC_DIR / f"{name}.cu"), "-o", str(tmp)]
+    cmd = [compiler, *flags, str(src), "-o", str(tmp)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=BUILD_TIMEOUT_S)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise KernelBuildError(f"{Path(compiler).name} on {src.name} did not run: {e}") from e
         if proc.returncode != 0:
             raise KernelBuildError(
-                f"nvcc failed (rc={proc.returncode}) on {name}.cu:\n"
+                f"{Path(compiler).name} failed (rc={proc.returncode}) on {src.name}:\n"
                 f"{proc.stderr[-4000:]}")
-        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+        out.with_suffix(".log.txt").write_text(proc.stderr)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
     return out
+
+
+def library_path(name: str) -> Path:
+    """Where the build of the CUDA source ``csrc/<name>.cu`` lives."""
+    return cached_path(_SRC_DIR / f"{name}.cu", NVCC_FLAGS)
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` with nvcc unless its build exists."""
+    return build_library(_SRC_DIR / f"{name}.cu", find_nvcc, NVCC_FLAGS)
 
 
 @functools.cache
@@ -95,4 +123,4 @@ def load(name: str) -> ctypes.CDLL:
 
 def ptxas_log(name: str) -> str:
     """What ``ptxas -v`` printed when ``csrc/<name>.cu`` was built."""
-    return library_path(name).with_suffix(".ptxas.txt").read_text()
+    return library_path(name).with_suffix(".log.txt").read_text()

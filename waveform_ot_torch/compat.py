@@ -1,5 +1,5 @@
 """The reference's class-based API on the PyTorch port (counterpart of
-waveform_ot_tpu.compat, lines 1-1072 there).
+waveform_ot_tpu.compat).
 
 Users of msambridge/waveform-ot keep their calling code: ``OTpdf``,
 ``waveformFP``, ``wasser``, ``MargWasserstein``, ``SlicedWasserstein``, the
@@ -10,13 +10,12 @@ is the card unless the caller asks for another (``device="cpu"``);
 ``OTpdf``/``waveformFP`` objects carry it, and the module functions that
 take none (``SinkhornAB``, ``filter``) have their own ``device`` argument.
 The LP, least-squares and numerical-integration oracles stay on the host
-(``ops/validate.py``, SciPy).
+(``ops/validate.py``, SciPy), as do the exact EMD of ``wasserPOT`` and the
+fast-marching field of ``calcpdf(method="FMM")`` and ``calcFMM_dist_deriv``
+(``native/``, C++).
 
 The plotting wrappers (``plotWasser`` ... ``plot_rays_discrete``, the JAX
-compat's lines 786-1072) draw through ``waveform_ot_torch.viz``. Not here
-yet: the fast-marching route (``calcpdf(method="FMM")`` raises
-FingerprintMethodError), the POT bridges ``wasserPOT``/``sinkhornPOT`` and
-``calcFMM_dist_deriv``.
+compat's lines 786-1072) draw through ``waveform_ot_torch.viz``.
 """
 
 from __future__ import annotations
@@ -33,8 +32,10 @@ from waveform_ot_torch.ops.fingerprint import (
     distance_field_nn, grid_axes, linspace, make_window, nearest_segment,
     nearest_vertex, normalize_vertices, resolve_adjacent,
 )
+from waveform_ot_torch.ops.fmm import distance_field_fmm, fmm_ray_endpoints
 from waveform_ot_torch.ops.marginal import marg_wasserstein as _marg
 from waveform_ot_torch.ops.otpdf import make_density, marginals, validate_density
+from waveform_ot_torch.ops.pot_bridge import sinkhorn_pot, wasser_pot
 from waveform_ot_torch.ops.sinkhorn import (
     gaussian_filter, sinkhorn_dense, sinkhorn_gaussian,
 )
@@ -296,6 +297,19 @@ def Sinkhorn_MS(sou: OTpdf, tar: OTpdf, gamma: float = 5e-4, maxiters: int = 500
     return _np(d), _np(pi)
 
 
+def wasserPOT(source: OTpdf, target: OTpdf, distfunc="W2", **kw):
+    """The reference's POT bridge (OTlib.py:906-928): the exact EMD on the
+    host, by the package's native solver when POT is absent; pass
+    ``backend='pot'`` for the reference's raise-when-absent behaviour."""
+    return wasser_pot(source.density, target.density, distfunc=distfunc, **kw)
+
+
+def sinkhornPOT(source: OTpdf, target: OTpdf, distfunc="W2", **kw):
+    """The reference's POT Sinkhorn (OTlib.py:1015-1053), iterated on the
+    objects' device."""
+    return sinkhorn_pot(source.density, target.density, distfunc=distfunc, **kw)
+
+
 def barypath_pointmass(source: OTpdf, target: OTpdf, weights):
     """The reference barypath_pointmass (OTlib.py:743-786): lists of
     amplitudes and positions, the original pdfs at the two ends."""
@@ -374,22 +388,27 @@ class waveformFP:
                 verbose=False, nsegs=0):
         """Distance field and density on the fingerprint grid: 'Enumerate'
         is the exact field (the CUDA kernel on the card, one launch),
-        'NNsearch' the vertex-NN field."""
-        if method in ("FMM", "fmm"):
-            raise errors.FingerprintMethodError(
-                method, "the fast-marching route is not ported yet")
-        if method not in ("Enumerate", "NNsearch"):
+        'NNsearch' the vertex-NN field, 'FMM' the fast-marching field of the
+        signed indicator (host C++, no launch; it leaves the nearest-segment
+        data unset, as the reference does)."""
+        if method not in ("Enumerate", "NNsearch", "FMM", "fmm"):
             raise errors.FingerprintMethodError(method)
         self.lam = lambdav
         self.q = q
         tg, ug = grid_axes(self._t, self._win, self._spec, fpbox=self._fpbox)
-        args = (self._pn[None].contiguous(), tg[None].contiguous(), ug[None].contiguous())
-        if method == "NNsearch":
-            fld, self.type = distance_field_nn(*args), "NNs"
+        if method in ("FMM", "fmm"):
+            self.dfield = distance_field_fmm(self.pn[:, 0], self.pn[:, 1], tg, ug)
+            self.type = "FMM"
+            d = _tensor(self.dfield, self.device)
         else:
-            fld, self.type = distance_field(*args), "Enu"
-        self._store_field(DistanceField(*(x[0] for x in fld)))
-        self._pdf = density_from_distance(self._fld.d, lambdav, q=q)
+            args = (self._pn[None].contiguous(), tg[None].contiguous(), ug[None].contiguous())
+            if method == "NNsearch":
+                fld, self.type = distance_field_nn(*args), "NNs"
+            else:
+                fld, self.type = distance_field(*args), "Enu"
+            self._store_field(DistanceField(*(x[0] for x in fld)))
+            d = self._fld.d
+        self._pdf = density_from_distance(d, lambdav, q=q)
         self.pdf = _np(self._pdf)
         shape = (self.nug, self.ntg)
         self.pos = _np(torch.stack([tg.expand(shape), ug[:, None].expand(shape)], dim=-1))
@@ -947,3 +966,9 @@ def plot_rays_discrete(X, Y, f, phi, t, waveform, xl, yl, title, col1, col2,
     if filename:
         fig.savefig(filename)
     plt.close(fig)
+
+
+def calcFMM_dist_deriv(d, deltax):
+    """Ray end points from an FMM distance field (reference
+    calcFMM_dist_deriv, FingerprintLib.py:853-865). Returns (Xw, Yw)."""
+    return fmm_ray_endpoints(d, deltax)

@@ -18,7 +18,7 @@ from waveform_ot_torch.inversion.loc_cmt import (  # noqa: F401
     misfit_from_seis, misfit_grid, predicted_seismograms,
 )
 from waveform_ot_torch.inversion.lbfgs import (  # noqa: F401
-    LBFGSResult, minimize_lbfgs_batched, minimize_lbfgs_batched_host,
+    LBFGSResult, minimize_lbfgs, minimize_lbfgs_batched, minimize_lbfgs_batched_host,
     minimize_multi_start, minimize_scipy,
 )
 from waveform_ot_torch.inversion.trace import InversionTrace  # noqa: F401

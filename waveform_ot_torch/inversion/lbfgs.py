@@ -19,11 +19,17 @@ one distance-field launch.
   * :func:`minimize_lbfgs_batched_host` — the same algorithm with float64
     numpy state on the host; the only device work is one batched value+grad
     and one batched value per step.
+  * :func:`minimize_lbfgs` and ``minimize_multi_start(method="zoom")`` —
+    JAX's on-device L-BFGS (optax 0.2.6's ``lbfgs``: ``scale_by_lbfgs`` with
+    the capped reciprocal gradient norm as the first step's scale, and
+    ``scale_by_zoom_linesearch`` with its defaults, 20 steps and initial
+    guess one), reproduced lane for lane by one masked, batched engine
+    (:func:`_zoom_lbfgs`) where JAX vmaps one lane's solve. Each zoom trial
+    is one value+grad call of all lanes; finished lanes are frozen.
   * :func:`minimize_multi_start` — the 64-start study's entry point.
   * :func:`minimize_scipy` — scipy L-BFGS-B over a (value, grad) function.
 
-Not ported: ``minimize_lbfgs`` and ``minimize_multi_start(method="zoom")``
-(optax's zoom line search) and ``minimize_multi_start_sharded``.
+Not ported: ``minimize_multi_start_sharded``.
 """
 
 from __future__ import annotations
@@ -35,19 +41,21 @@ import torch
 
 
 class LBFGSResult(NamedTuple):
-    """Per-lane result of a batched solve; every field has the leading k axis.
+    """Per-lane result of a batched solve; every field has the leading k axis
+    (:func:`minimize_lbfgs` gives one lane without it).
 
-    ``ls_failed`` marks lanes frozen because the backtracking line search
-    exhausted its trials without an acceptable step (e.g. the objective is
-    non-finite around the iterate), or whose start or accepted point was
-    non-finite: they did NOT converge to tol.
+    ``ls_failed`` (batched solvers only) marks lanes frozen because the
+    backtracking line search exhausted its trials without an acceptable step
+    (e.g. the objective is non-finite around the iterate), or whose start or
+    accepted point was non-finite: they did NOT converge to tol. The zoom
+    solver never freezes a lane for that, and leaves it None, as JAX's does.
     """
 
     x: torch.Tensor
     fun: torch.Tensor
     grad_norm: torch.Tensor
     n_iter: torch.Tensor
-    ls_failed: torch.Tensor
+    ls_failed: torch.Tensor | None = None
 
 
 def _value(fun: Callable, x: torch.Tensor) -> torch.Tensor:
@@ -299,17 +307,250 @@ def minimize_lbfgs_batched_host(fun: Callable, x0s, max_iter: int = 200,
                        ls_failed=torch.as_tensor(failed, device=device))
 
 
+# optax 0.2.6 scale_by_zoom_linesearch defaults (linesearch.py:1331), as
+# optax.lbfgs sets them (alias.py:2591): 20 steps, initial guess one
+ZOOM_STEPS = 20
+ZOOM_INCREASE = 2.0
+ZOOM_SLOPE_RTOL = 1e-4
+ZOOM_CURV_RTOL = 0.9
+ZOOM_APPROX_DEC_RTOL = 1e-6
+ZOOM_INTERVAL = 1e-5
+
+
+def _vdot(a, b):
+    return (a * b).sum(dim=-1)
+
+
+def _where(mask, a, b):
+    """torch.where with a lane mask (k,) over lane-major a, b: (k,) or (k, n)."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """Critical point of the cubic through (a, fa), (b, fb), (c, fc) with
+    slope fpa at a (optax's _cubicmin); NaN where there is none."""
+    db, dc = b - a, c - a
+    e1, e2 = fb - fa - fpa * db, fc - fa - fpa * dc
+    p = db * dc
+    denom = p * p * (db - dc)
+    A = (dc * dc * e1 + -(db * db) * e2) / denom
+    B = (-(dc * (dc * dc)) * e1 + db * (db * db) * e2) / denom
+    return a + (-B + torch.sqrt(B * B - 3.0 * A * fpa)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """Critical point of the quadratic through (a, fa), (b, fb) with slope
+    fpa at a (optax's _quadmin)."""
+    db = b - a
+    B = (fb - fa - fpa * db) / (db * db)
+    return a - fpa / (2.0 * B)
+
+
+def _decrease_error(step, value, slope, value_init, slope_init):
+    """optax's sufficient-decrease error, with the approximate (Hager-Zhang)
+    criterion; NaN reads as inf."""
+    dec = value - value_init - ZOOM_SLOPE_RTOL * step * slope_init
+    approx = torch.maximum(slope - (2 * ZOOM_SLOPE_RTOL - 1.0) * slope_init,
+                           value - value_init - ZOOM_APPROX_DEC_RTOL * value_init.abs())
+    dec = torch.clamp_min(torch.minimum(approx, dec), 0.0)
+    return torch.where(torch.isnan(dec), torch.inf, dec)
+
+
+def _curvature_error(slope, slope_init):
+    curv = torch.clamp_min(slope.abs() - ZOOM_CURV_RTOL * slope_init.abs(), 0.0)
+    return torch.where(torch.isnan(curv), torch.inf, curv)
+
+
+def _zoom_linesearch(fun, x, d, value, grad, searching):
+    """optax's zoom line search (Nocedal-Wright 3.5/3.6 with Hager-Zhang's
+    approximate decrease) along ``d`` from ``x`` for every lane in
+    ``searching`` at once: each trial is ONE value+grad call of all k lanes
+    (lanes not searching are evaluated at ``x`` and left as they are), and
+    the loop's condition is one flag read from the device per trial. A lane
+    whose search fails takes its safe step (sufficient decrease) when it has
+    one or when its last trial was non-finite, as optax's _try_safe_step.
+    Returns (stepsize, value, grad) per lane."""
+    zero = torch.zeros_like(value)
+    slope = _vdot(d, grad)
+    st = dict(step=zero, value=value, grad=grad, slope=slope, found=torch.zeros_like(searching),
+              low=zero, v_low=value, s_low=slope, high=zero, v_high=value, s_high=slope,
+              cref=zero, v_cref=value, safe=zero, v_safe=value, g_safe=grad)
+    count = 0
+    while bool(searching.any()):
+        # the search phase's next trial, and the zoom phase's
+        grow = torch.full_like(value, 1.0) if count == 0 else ZOOM_INCREASE * st["step"]
+        low, high = st["low"], st["high"]
+        delta = (high - low).abs()
+        left, right = torch.minimum(high, low), torch.maximum(high, low)
+        mc = _cubicmin(low, st["v_low"], st["s_low"], high, st["v_high"], st["cref"],
+                       st["v_cref"])
+        use_cubic = (mc > left + 0.2 * delta) & (mc < right - 0.2 * delta)
+        mq = _quadmin(low, st["v_low"], st["s_low"], high, st["v_high"])
+        use_quad = ~use_cubic & (mq > left + 0.1 * delta) & (mq < right - 0.1 * delta)
+        middle = torch.where(use_cubic, mc, st["cref"])
+        middle = torch.where(use_quad, mq, middle)
+        middle = torch.where(~use_cubic & ~use_quad, (low + high) / 2.0, middle)
+        trial = torch.where(st["found"], middle, grow)
+
+        v, g = _value_and_grad(fun, _where(searching, x + trial[:, None] * d, x))
+        s = _vdot(g, d)
+        dec = _decrease_error(trial, v, s, value, slope)
+        err = torch.maximum(dec, _curvature_error(s, slope))
+        done = err <= 0.0
+        last = count + 1 >= ZOOM_STEPS
+
+        # search phase (Algorithm 3.5)
+        ok = dec <= 0.0
+        safe_s = torch.where(ok, trial, st["safe"])
+        v_safe_s = torch.where(ok, v, st["v_safe"])
+        g_safe_s = _where(ok, g, st["g_safe"])
+        hi_new = (dec > 0.0) | ((v >= st["value"]) & (count > 0))
+        lo_new = (s >= 0.0) & ~hi_new
+        low_s = torch.where(lo_new, trial, st["step"])
+        v_low_s = torch.where(lo_new, v, st["value"])
+        s_low_s = torch.where(lo_new, s, st["slope"])
+        high_s = torch.where(lo_new, st["step"], trial)
+        v_high_s = torch.where(lo_new, st["value"], v)
+        s_high_s = torch.where(lo_new, st["slope"], s)
+        found_s = hi_new | lo_new | done
+
+        # zoom phase (Algorithm 3.6)
+        better = ok & (v < st["v_safe"])
+        safe_z = torch.where(better, trial, st["safe"])
+        v_safe_z = torch.where(better, v, st["v_safe"])
+        g_safe_z = _where(better, g, st["g_safe"])
+        hi_mid = (dec > 0.0) | (v >= st["v_low"])
+        hi_low = (s * (high - low) >= 0.0) & ~hi_mid
+        high_z = torch.where(hi_low, low, torch.where(hi_mid, trial, high))
+        v_high_z = torch.where(hi_low, st["v_low"], torch.where(hi_mid, v, st["v_high"]))
+        s_high_z = torch.where(hi_low, st["s_low"], torch.where(hi_mid, s, st["s_high"]))
+        low_z = torch.where(hi_mid, low, trial)
+        v_low_z = torch.where(hi_mid, st["v_low"], v)
+        s_low_z = torch.where(hi_mid, st["s_low"], s)
+        moved_high = hi_mid | hi_low
+        cref_z = torch.where(moved_high, high, low)
+        v_cref_z = torch.where(moved_high, st["v_high"], st["v_low"])
+        failed_z = (last | ((delta <= ZOOM_INTERVAL) & (safe_z > 0.0))) & ~done
+
+        z = st["found"]
+        pick = lambda a_z, a_s: _where(z, a_z, a_s)
+        new = dict(step=trial, value=v, grad=g, slope=s, found=z | found_s,
+                   low=pick(low_z, low_s), v_low=pick(v_low_z, v_low_s),
+                   s_low=pick(s_low_z, s_low_s), high=pick(high_z, high_s),
+                   v_high=pick(v_high_z, v_high_s), s_high=pick(s_high_z, s_high_s),
+                   cref=pick(cref_z, low_s), v_cref=pick(v_cref_z, v_low_s),
+                   safe=pick(safe_z, safe_s), v_safe=pick(v_safe_z, v_safe_s),
+                   g_safe=pick(g_safe_z, g_safe_s))
+        failed = torch.where(z, failed_z, last & ~done)
+        # _try_safe_step
+        use_safe = failed & ((new["safe"] > 0.0) | torch.isinf(dec))
+        for key, src in (("step", "safe"), ("value", "v_safe"), ("grad", "g_safe")):
+            new[key] = _where(use_safe, new[src], new[key])
+        st = {key: _where(searching, val, st[key]) for key, val in new.items()}
+        searching = searching & ~(done | failed)
+        count += 1
+    return st["step"], st["value"], st["grad"]
+
+
+def _zoom_lbfgs(fun: Callable, x0s, max_iter: int, tol: float,
+                memory_size: int) -> LBFGSResult:
+    """JAX's ``jax.vmap(minimize_lbfgs)`` lane for lane, on the batched
+    objective ``fun`` (k, n) -> (k,). A lane runs while its step count is 0
+    or (below ``max_iter`` and its gradient norm at least ``tol``), JAX's
+    ``cond``; the condition is one flag read from the device per iteration.
+    Each iteration: the value and gradient of the last accepted trial (one
+    value+grad call where one is not finite, as optax's
+    value_and_grad_from_state); the L-BFGS memory update and two-loop
+    direction of optax's scale_by_lbfgs, newest pair written at slot
+    (count - 1) mod m; the zoom line search. ``fun`` of the result is the
+    line search's value at x, which is fun(x)."""
+    k, n = x0s.shape
+    m = memory_size
+    x = x0s
+    prev_x, prev_g = torch.zeros_like(x), torch.zeros_like(x)
+    S, Y, rho = x.new_zeros(m, k, n), x.new_zeros(m, k, n), x.new_zeros(m, k)
+    f_ls, g_ls = torch.full_like(x[:, 0], torch.inf), torch.zeros_like(x)
+    active = torch.ones(k, dtype=torch.bool, device=x.device)
+    n_iter = torch.zeros(k, dtype=torch.int32, device=x.device)
+    it = 0
+    while True:
+        if it > 0:
+            active = active & (torch.linalg.vector_norm(g_ls, dim=-1) >= tol) & (it < max_iter)
+        need = active & ~torch.isfinite(f_ls)
+        any_active, any_need = torch.stack([active.any(), need.any()]).tolist()
+        if not any_active:
+            break
+        value, grad = f_ls, g_ls
+        if any_need:
+            v, g = _value_and_grad(fun, x)
+            value, grad = torch.where(need, v, value), _where(need, g, grad)
+
+        # scale_by_lbfgs: memory update, then the two-loop product
+        mi, prev = it % m, (it - 1) % m
+        if it > 0:
+            dx, dg = x - prev_x, grad - prev_g
+            sy = _vdot(dg, dx)
+            w = torch.where(sy == 0.0, 0.0, 1.0 / sy)
+            dd = _vdot(dg, dg)
+            scale = torch.where(dd > 0.0, sy / dd, 1.0)
+        else:
+            dx, dg, w = torch.zeros_like(x), torch.zeros_like(x), torch.zeros_like(value)
+            scale = torch.clamp_max(1.0 / torch.linalg.vector_norm(grad, dim=-1), 1.0)
+        S[prev] = _where(active, dx, S[prev])
+        Y[prev] = _where(active, dg, Y[prev])
+        rho[prev] = torch.where(active, w, rho[prev])
+        order = [(mi + j) % m for j in range(m)]
+        q, alphas = grad, {}
+        for i in reversed(order):
+            alphas[i] = rho[i] * _vdot(S[i], q)
+            q = q + (-alphas[i])[:, None] * Y[i]
+        r = scale[:, None] * q
+        for i in order:
+            r = r + (alphas[i] - rho[i] * _vdot(Y[i], r))[:, None] * S[i]
+        d = -1.0 * r
+
+        step, f_new, g_new = _zoom_linesearch(fun, x, d, value, grad, active)
+        prev_x = _where(active, x, prev_x)
+        prev_g = _where(active, grad, prev_g)
+        x = _where(active, x + step[:, None] * d, x)
+        f_ls = torch.where(active, f_new, f_ls)
+        g_ls = _where(active, g_new, g_ls)
+        n_iter = n_iter + active.to(torch.int32)
+        it += 1
+    return LBFGSResult(x=x, fun=f_ls, grad_norm=torch.linalg.vector_norm(g_ls, dim=-1),
+                       n_iter=n_iter)
+
+
+def minimize_lbfgs(fun: Callable, x0, max_iter: int = 200, tol: float = 1e-8,
+                   memory_size: int = 10) -> LBFGSResult:
+    """Minimize from one start ``x0`` (n,) by JAX's on-device L-BFGS (optax's
+    lbfgs with the zoom line search); ``fun`` is the port's batched objective
+    (k, n) -> (k,), called here with k = 1. Ends when the gradient norm
+    falls below ``tol`` or after ``max_iter`` steps. The result's fields
+    carry no lane axis."""
+    res = _zoom_lbfgs(fun, x0[None], max_iter, tol, memory_size)
+    return LBFGSResult(*(a[0] for a in res[:4]))
+
+
 def minimize_multi_start(fun: Callable, x0s, max_iter: int = 200,
                          tol: float = 1e-8,
                          method: str = "batched") -> LBFGSResult:
     """Multi-start minimization of the batched objective ``fun`` (k, n) ->
-    (k,) from the starts ``x0s`` (k, n), by :func:`minimize_lbfgs_batched`:
-    the reference's serial 64-start study (Fig 12) as one batched solve.
-    Every field of the result has the leading k axis. Only
-    ``method="batched"`` is ported; JAX's ``"zoom"`` (optax) is not."""
-    if method != "batched":
-        raise ValueError(f"method={method!r}: only 'batched' is ported")
-    return minimize_lbfgs_batched(fun, x0s, max_iter=max_iter, tol=tol)
+    (k,) from the starts ``x0s`` (k, n): the reference's serial 64-start
+    study (Fig 12) as one batched solve. Every field of the result has the
+    leading k axis.
+
+    method='batched' (default): :func:`minimize_lbfgs_batched`, masked early
+    exit and value-only backtracking.
+    method='zoom': :func:`minimize_lbfgs` on every start at once (optax's
+    zoom line search, lane for lane JAX's vmap of it), the strong-Wolfe
+    cross-check; ``ls_failed`` is None.
+    """
+    if method == "batched":
+        return minimize_lbfgs_batched(fun, x0s, max_iter=max_iter, tol=tol)
+    if method == "zoom":
+        return _zoom_lbfgs(fun, x0s, max_iter, tol, memory_size=10)
+    raise ValueError(f"unknown method {method!r}: 'batched' or 'zoom'")
 
 
 def minimize_scipy(value_and_grad_fn: Callable, x0: torch.Tensor,

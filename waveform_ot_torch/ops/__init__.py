@@ -30,3 +30,4 @@ from waveform_ot_torch.ops.barycenter import (  # noqa: F401
     barycenter_continuous, barycenter_pointmass,
 )
 from waveform_ot_torch.ops.transforms import arctan_transform  # noqa: F401
+from waveform_ot_torch.ops import fmm, pot_bridge  # noqa: F401

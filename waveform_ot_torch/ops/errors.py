@@ -71,10 +71,10 @@ class WaveformFPderivError(OTError):
 
 
 class FingerprintMethodError(OTError):
-    """Unknown (or not yet ported) distance-field method or density exponent."""
+    """Unknown distance-field method or density exponent."""
 
-    def __init__(self, method=None, reason: str = "unknown fingerprint method"):
-        super().__init__(f"{reason}: {method!r}")
+    def __init__(self, method=None):
+        super().__init__(f"unknown fingerprint method: {method!r}")
 
 
 class FMMLibraryError(OTError):

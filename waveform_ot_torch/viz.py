@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from waveform_ot_torch.ops.fmm import signed_indicator
+
 
 def _arr(a, dtype=None) -> np.ndarray:
     """``a`` as a NumPy array: a tensor on any device is detached and copied
@@ -27,17 +29,6 @@ def _arr(a, dtype=None) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return np.asarray(a, dtype=dtype)
-
-
-def _signed_indicator(t, w, tgrid, ugrid) -> np.ndarray:
-    """The fast-marching seed field: +1 above the grid-interpolated waveform,
-    -1 on or below it (FingerprintLib.py:142-146)."""
-    tgrid, ugrid = _arr(tgrid), _arr(ugrid)
-    phi = -np.ones((len(ugrid), len(tgrid)))
-    wi = np.interp(tgrid, _arr(t), _arr(w))
-    _, yn = np.meshgrid(tgrid, ugrid)
-    phi[yn > wi] = 1.0
-    return phi
 
 
 def _plt():
@@ -322,7 +313,7 @@ def plot_phi(t, waveform, tgrid, ugrid, phi=None, filename=None):
     to the fast-marching seed field of the waveform on the grid."""
     plt = _plt()
     if phi is None:
-        phi = _signed_indicator(t, waveform, tgrid, ugrid)
+        phi = signed_indicator(t, waveform, tgrid, ugrid)
     phi = _arr(phi)
     X, Y = np.meshgrid(_arr(tgrid), _arr(ugrid))
     fig, ax = plt.subplots(figsize=(8, 4))
