@@ -125,6 +125,22 @@ is non-zero:
                 kernel among the top five). Every launch outside the timing
                 runs is held bit for bit (held_launches); host-clock medians
                 per call.
+ 15. parallel   the parallel layer (parallel_phase): waveform_ot_torch.parallel
+                and the two sharded inversion entry points on the mesh of the
+                visible cards and on 4 shards of cuda:0 (a (2, 2) mesh for
+                dp x sp): trace-sharded loc64 value+grad (f32, f64) through
+                pjit_batched_misfit; phase 7's 1,764 nodes through
+                misfit_grid_sharded (peak memory); phase 6's 64 starts through
+                minimize_multi_start_sharded (every start within 0.1 km,
+                evaluations per shard); phase 12's 800x600 RF through
+                grid_sharded_marg_misfit and grid_sharded_density (f64); two
+                delayed RFs through dp_sp_marg_misfit; phase 9's layered
+                problem at 12 stations (f32, f64). Each against the same call
+                unsharded on the card (f64 1e-12 / 1e-11 of max |g|, layered
+                1e-9; f32 the card-vs-CPU bars above), one kernel launch per
+                shard per evaluation (asserted), every launch outside the
+                timing runs held bit for bit (held_launches); host-clock
+                medians of 3, unsharded and per mesh.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -138,6 +154,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -284,6 +301,15 @@ ZOOM_RICKER_ITERS = 100        # examples/ricker_inversion.py:49-53
 ZOOM_RICKER_HELD = 20
 TOP_OPS = 5
 ALL_OPS = 1000                 # more than any call here has
+# phase 15: the parallel layer on a mesh of the visible cards and on PAR_SHARDS
+# shards of cuda:0
+PAR_SHARDS = 4
+PAR_NR_LAYERED = 12            # stations of the station-sharded layered case (see parallel_phase)
+PAR_VALUE_RTOL_F64 = 1e-12     # sharded vs unsharded on the card, float64
+PAR_GRAD_TOL_F64 = 1e-11       # ... of max |g|
+PAR_LAYERED_TOL_F64 = 1e-9     # JAX's station-sharded contract (tests/test_parallel.py:411-431)
+PAR_DP_SP_SHIFTS = (RF_SHIFT, -RF_SHIFT)
+PAR_TIMED = 3                  # host-clock median of 3 per call
 
 
 def build_loc64_problem(nr: int, dtype, device):
@@ -310,9 +336,9 @@ def build_loc64_problem(nr: int, dtype, device):
     return loc, cfg, build_loc_cmt_problem(t, obs, stations, cfg, mxyz_fixed=mxyz)
 
 
-def build_layered_problem(dtype, device):
+def build_layered_problem(dtype, device, nr: int = NR_STUDY):
     """The bench's Figs 9-11 problem (``bench._build_layered_problem``) in the
-    port: the six-layer Fukuoka model, NR_STUDY stations on a 60 km circle,
+    port: the six-layer Fukuoka model, nr stations on a 60 km circle,
     nt 61, dt 1, nk 512, kmax 2.0, source at LOC with strike/dip/rake
     30/60/45 and M0 5e6, observed data from the layered forward plus
     0.002*max|s| noise from numpy default_rng(0), 79x61 grids, lambda 0.04,
@@ -324,7 +350,7 @@ def build_layered_problem(dtype, device):
     )
 
     arr = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    ang = np.linspace(0, 2 * np.pi, NR_STUDY, endpoint=False)
+    ang = np.linspace(0, 2 * np.pi, nr, endpoint=False)
     stations = StationSet(x=arr(60.0 * np.cos(ang)), y=arr(60.0 * np.sin(ang)))
     mxyz = moment_tensor_from_sdr(30.0, 60.0, 45.0, m0=5.0e6, device=device).to(dtype)
     kw = dict(model=fukuoka_model(device=device), nt=NT, dt=1.0, nk=LAYERED_NK,
@@ -568,17 +594,36 @@ def ptxas_by_variant(log: str) -> dict:
 
 class CountedObjective:
     """A batched objective that counts its calls: value-only calls (the
-    solvers' line-search trials) and value+grad calls (grad mode on)."""
+    solvers' line-search trials) and value+grad calls (grad mode on). ``log``
+    keeps each call's kind (True: value+grad) by the device of its models;
+    a mesh's per-device threads each write their own device's list."""
 
     def __init__(self, fn):
-        self.fn, self.values, self.value_grads = fn, 0, 0
+        self.fn, self.values, self.value_grads, self.log = fn, 0, 0, {}
+        self._lock = threading.Lock()
 
     def __call__(self, ms):
-        if torch.is_grad_enabled():
-            self.value_grads += 1
-        else:
-            self.values += 1
+        grad = torch.is_grad_enabled()
+        with self._lock:
+            if grad:
+                self.value_grads += 1
+            else:
+                self.values += 1
+        self.log.setdefault(ms.device, []).append(grad)
         return self.fn(ms)
+
+
+def solver_runs(calls: list) -> list:
+    """One device's call log split into the batched solves that ran on it in
+    turn: [value+grad calls, trials] each. A solve opens with a value+grad
+    call and makes at least one trial before each later one, so two
+    value+grad calls in a row mark the next solve."""
+    runs = []
+    for i, grad in enumerate(calls):
+        if grad and (i == 0 or calls[i - 1]):
+            runs.append([0, 0])
+        runs[-1][0 if grad else 1] += 1
+    return runs
 
 
 @contextlib.contextmanager
@@ -1544,6 +1589,290 @@ def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
     return launches, per_call
 
 
+def _value_and_grads(fn, *leaves):
+    """(value, all gradients flattened into one vector) of the scalar
+    fn(*leaves), by one autograd pass."""
+    xs = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        v = fn(*xs)
+        g = torch.autograd.grad(v, xs)
+    return v.detach(), torch.cat([gi.reshape(-1) for gi in g])
+
+
+def _vg_dev(got, ref) -> tuple[float, float]:
+    """(value's relative deviation, gradient's deviation over max |g|)."""
+    return abs(got[0].item() - ref[0].item()) / abs(ref[0].item()), _rel(got[1], ref[1])
+
+
+def parallel_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 15: the parallel layer (waveform_ot_torch.parallel and the two
+    sharded inversion entry points) at the full width of the problems above,
+    on the mesh of the visible cards ("mesh1" on one card) and on
+    PAR_SHARDS shards of ``dev`` ("mesh4"):
+
+      a. trace-sharded loc64 (192 traces, 48 per shard on mesh4), value+grad
+         through pjit_batched_misfit, f32 and f64;
+      b. node-sharded scan: phase 7's 1,764 nodes (441 per shard) through
+         misfit_grid_sharded, f32, with peak device memory;
+      c. start-sharded study: phase 6's 64 starts (16 per shard) through
+         minimize_multi_start_sharded, every start within 0.1 km, evaluations
+         per shard;
+      d. grid-sharded fingerprint: phase 12's 800x600 RF delayed by RF_SHIFT
+         against the observed RF's marginals, 150 columns per shard, through
+         grid_sharded_marg_misfit (value and gradients w.r.t. the polyline
+         and the time shift) and grid_sharded_density, f64;
+      e. dp x sp: the RF delayed by +RF_SHIFT and -RF_SHIFT, one per mesh row,
+         300 columns per shard, on a (2, 2) mesh of ``dev`` (and (1, cards)
+         over the cards), value and gradient, f64;
+      f. station-sharded layered: phase 9's Fukuoka problem at PAR_NR_LAYERED
+         = 12 stations, not 11, so that 4 shards divide them (3 per shard),
+         f32 and f64.
+
+    Each sharded call against the same call unsharded on the card (f64:
+    value 1e-12, gradient 1e-11 of max |g|, the layered case 1e-9, JAX's
+    contract; f32: the phase's card-vs-CPU bars), exactly one kernel launch
+    per shard per evaluation (asserted), every launch outside the timing runs
+    held bit for bit against the plain field; then a host-clock median of 3
+    per call, unsharded and on each mesh. Returns the launches of each
+    counted run and the launches per call."""
+    from waveform_ot_torch import parallel as par
+    from waveform_ot_torch.inversion import (
+        InvOptions, LocCMTObjective, loc_cmt_misfit, loc_cmt_value_and_grad, misfit_grid,
+        misfit_grid_sharded, minimize_multi_start, minimize_multi_start_sharded,
+    )
+    from waveform_ot_torch.models import make_layered_forward
+    from waveform_ot_torch.ops import (
+        Density1D, FingerprintSpec, cuda_distance, density_from_distance, distance_field_diff,
+        grid_axes, make_density_1d, make_window, normalize_vertices,
+    )
+    from waveform_ot_torch.ops.marginal import marg_wasserstein_value
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    opts = InvOptions(loc=True, cmt=False, mistype="OT")
+    chk = PhaseChecks("parallel", card)
+    ncards = torch.cuda.device_count()
+    meshes = {"mesh1": par.make_mesh(), f"mesh{PAR_SHARDS}": par.make_mesh(PAR_SHARDS, device=dev)}
+    meshes_2d = {"mesh1": par.make_mesh_2d(1, ncards),
+                 f"mesh{PAR_SHARDS}": par.make_mesh_2d(2, PAR_SHARDS // 2, device=dev)}
+    cases = []   # (name, unsharded call, {mesh: (sharded call, shards)}, check(got, ref))
+
+    def vg_check(value_tol, grad_tol):
+        def check(got, ref):
+            dv, dg = _vg_dev(got, ref)
+            if not (dv <= value_tol and dg <= grad_tol):
+                raise AssertionError(f"value {dv:.3e} (bound {value_tol:g}), gradient {dg:.3e} "
+                                     f"(bound {grad_tol:g})")
+            return f"value rel {dv:.3e} (bound {value_tol:g}), gradient {dg:.3e} of max|g| " \
+                   f"(bound {grad_tol:g})"
+        return check
+
+    # a. trace-sharded loc64
+    for dt, tols in ((f32, (VALUE_RTOL_F32, GRAD_TOL_F32)),
+                     (f64, (PAR_VALUE_RTOL_F64, PAR_GRAD_TOL_F64))):
+        loc, cfg, prob = build_loc64_problem(64, dt, dev)
+        m = loc + torch.tensor(DM, dtype=dt, device=dev)
+
+        def sharded(mesh, prob=prob, cfg=cfg, m=m):
+            placed = par.shard_leading_axis(prob, mesh)
+            f = par.pjit_batched_misfit(lambda mm, pp: loc_cmt_misfit(mm, pp, opts, cfg), mesh)
+            return lambda: _value_and_grads(lambda mm: f(mm, placed), m), mesh.size
+
+        cases.append((f"loc64_{str(dt)[6:]}",
+                      lambda prob=prob, cfg=cfg, m=m: loc_cmt_value_and_grad(m, prob, opts, cfg),
+                      {k: sharded(mesh) for k, mesh in meshes.items()}, vg_check(*tols)))
+
+    # b. node-sharded scan
+    _, cfg11, prob11 = build_loc64_problem(NR_STUDY, f32, dev)
+    nodes = scan_nodes(f32, dev)
+
+    def scan_check(got, ref):
+        dv = ((got - ref).abs() / ref.abs()).max().item()
+        if not dv <= VALUE_RTOL_F32:
+            raise AssertionError(f"scan values {dv:.3e} (bound {VALUE_RTOL_F32:g})")
+        return f"{len(nodes)} nodes, value rel max {dv:.3e} (bound {VALUE_RTOL_F32:g})"
+
+    cases.append(("scan", lambda: misfit_grid(nodes, prob11, opts, cfg11),
+                  {k: (lambda mesh=mesh: misfit_grid_sharded(nodes, prob11, opts, cfg11,
+                                                             mesh).gather(), mesh.size)
+                   for k, mesh in meshes.items()}, scan_check))
+
+    # d. grid-sharded fingerprint of the 800x600 RF, float64
+    t0, t1, u0, u1, nu, ntg = rf_grid6()
+    win = make_window(t0, t1, u0, u1, dtype=f64, device=dev)
+    trf = torch.as_tensor(rf_waveform()[0], dtype=f64, device=dev)
+    rf_verts = lambda shift: normalize_vertices(
+        trf, torch.as_tensor(rf_waveform(shift)[1], dtype=f64, device=dev)[None], win)[0]
+    tgrid, ugrid = grid_axes(trf, win, FingerprintSpec(nu=nu, ntg=ntg))
+    with torch.no_grad():
+        obs = density_from_distance(distance_field_diff(rf_verts(0.0)[None], tgrid[None],
+                                                        ugrid[None]), RF_LAMBDA)[0]
+    tgt_t, tgt_u = make_density_1d(obs.sum(0), tgrid), make_density_1d(obs.sum(1), ugrid)
+    rows = lambda d, k: Density1D(*(a.expand(k, *a.shape) for a in d))
+    verts = rf_verts(RF_SHIFT)
+    zero = torch.zeros((), dtype=f64, device=dev)
+
+    def plain_marg(v, ts):
+        k = v.shape[0]
+        u2d = density_from_distance(distance_field_diff(v, tgrid.expand(k, ntg),
+                                                        ugrid.expand(k, nu)), RF_LAMBDA)
+        wt, wu = marg_wasserstein_value(u2d, tgrid.expand(k, ntg), ugrid.expand(k, nu),
+                                        rows(tgt_t, k), rows(tgt_u, k), p=2, tshift=ts)
+        return (0.5 * wt + 0.5 * wu).sum()
+
+    def grid_sharded(mesh):
+        fn = par.grid_sharded_marg_misfit(mesh, lambdav=RF_LAMBDA, p=2)
+        tg = par.shard_grid_axis(tgrid, mesh)
+
+        def obj(v, ts):
+            wt, wu = fn(v, tg, ugrid, tgt_t, tgt_u, ts)
+            return 0.5 * wt + 0.5 * wu
+        return lambda: _value_and_grads(obj, verts, zero), mesh.size
+
+    cases.append(("grid_rf", lambda: _value_and_grads(lambda v, ts: plain_marg(v[None], ts),
+                                                      verts, zero),
+                  {k: grid_sharded(mesh) for k, mesh in meshes.items()},
+                  vg_check(PAR_VALUE_RTOL_F64, PAR_GRAD_TOL_F64)))
+
+    def density_check(got, ref):
+        dv = _rel(got, ref)
+        if not dv <= PAR_VALUE_RTOL_F64:
+            raise AssertionError(f"sharded density {dv:.3e} (bound {PAR_VALUE_RTOL_F64:g})")
+        return f"pdf {tuple(got.shape)} {dv:.3e} of its max (bound {PAR_VALUE_RTOL_F64:g})"
+
+    cases.append(("grid_rf_density", lambda: density_from_distance(
+        distance_field_diff(verts[None], tgrid[None], ugrid[None]), RF_LAMBDA)[0],
+        {k: (lambda mesh=mesh, tg=par.shard_grid_axis(tgrid, mesh): par.grid_sharded_density(
+            mesh, lambdav=RF_LAMBDA)(verts, tg, ugrid).gather(), mesh.size)
+         for k, mesh in meshes.items()}, density_check))
+
+    # e. dp x sp: two delayed RFs against the observed marginals
+    verts_b = torch.stack([rf_verts(sh) for sh in PAR_DP_SP_SHIFTS])
+    shifts = torch.zeros(len(PAR_DP_SP_SHIFTS), dtype=f64, device=dev)
+    nb = len(PAR_DP_SP_SHIFTS)
+
+    def dp_sp(mesh):
+        fn = par.dp_sp_marg_misfit(mesh, lambdav=RF_LAMBDA, p=2, alpha=0.5)
+        tg = par.shard_grid_axis(tgrid, mesh, axis_name="seq")
+        return (lambda: _value_and_grads(lambda v: fn(v, tg, ugrid, rows(tgt_t, nb),
+                                                      rows(tgt_u, nb), shifts), verts_b),
+                mesh.size)
+
+    cases.append(("dp_sp_rf", lambda: _value_and_grads(lambda v: plain_marg(v, shifts), verts_b),
+                  {k: dp_sp(mesh) for k, mesh in meshes_2d.items()},
+                  vg_check(PAR_VALUE_RTOL_F64, PAR_GRAD_TOL_F64)))
+
+    # f. station-sharded layered, 12 stations
+    def layered_check_f32(got, ref):
+        dv = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
+        g, r = got[1].double(), ref[1].double()
+        cos, ratio = (g @ r / (g.norm() * r.norm())).item(), (g.norm() / r.norm()).item()
+        if not (dv <= LAYERED_VALUE_RTOL_F32 and cos > GRAD_COS_F32 and 0.5 < ratio < 2.0):
+            raise AssertionError(f"layered f32: value {dv:.3e}, cosine {cos}, ratio {ratio}")
+        return (f"value rel {dv:.3e} (bound {LAYERED_VALUE_RTOL_F32:g}), gradient cosine "
+                f"{cos:.9f} (bound > {GRAD_COS_F32}), norm ratio {ratio:.9f} (bound (0.5, 2))")
+
+    for dt, check in ((f32, layered_check_f32),
+                      (f64, vg_check(PAR_LAYERED_TOL_F64, PAR_LAYERED_TOL_F64))):
+        lloc, lcfg, lprob, lfwd, _ = build_layered_problem(dt, dev, nr=PAR_NR_LAYERED)
+        # model=None: the Fukuoka model built on each shard's device
+        dyn = make_layered_forward(nt=NT, dt=1.0, nk=LAYERED_NK, kmax=LAYERED_KMAX)
+        lm = lloc + torch.tensor(DM, dtype=dt, device=dev)
+
+        def lsharded(mesh, lprob=lprob, lcfg=lcfg, lm=lm, dyn=dyn):
+            placed = par.shard_leading_axis(lprob, mesh)
+            f = par.pjit_batched_misfit(lambda mm, pp: loc_cmt_misfit(
+                mm, pp, opts, lcfg, forward=lambda x, y, z, mx: dyn(x, y, z, mx, pp.stations)),
+                mesh)
+            return lambda: _value_and_grads(lambda mm: f(mm, placed), lm), mesh.size
+
+        cases.append((f"layered12_{str(dt)[6:]}",
+                      lambda lprob=lprob, lcfg=lcfg, lm=lm, lfwd=lfwd: loc_cmt_value_and_grad(
+                          lm, lprob, opts, lcfg, forward=lfwd),
+                      {k: lsharded(mesh) for k, mesh in meshes.items()}, check))
+
+    # counted runs, every launch held
+    launches, per_call, peaks = {}, {}, {}
+    cuda_distance.LAUNCHES_BY_DEVICE.clear()
+    with held_launches("parallel") as held:
+        for name, unsharded, by_mesh, check in cases:
+            torch.cuda.reset_peak_memory_stats()
+            ref, n = chk.counted(unsharded, want=1, what=f"{name} unsharded")
+            peaks[name, "unsharded"] = torch.cuda.max_memory_allocated() / 1e9
+            launches[f"par_{name}"] = n
+            for label, (fn, shards) in by_mesh.items():
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                got, n = chk.counted(fn, want=shards, what=f"{name} {label}")
+                peaks[name, label] = torch.cuda.max_memory_allocated() / 1e9
+                launches[f"par_{name}_{label}"] = n
+                per_call[f"par_{name}_{label}"] = n
+                print(f"[parallel] {name} {label} ({shards} shards) vs unsharded: "
+                      f"{check(got, ref)}; kernel launches {n} (one per shard); peak device "
+                      f"memory {peaks[name, label]:.3f} GB (unsharded "
+                      f"{peaks[name, 'unsharded']:.3f} GB)")
+            del ref, got
+            torch.cuda.empty_cache()
+
+        # c. the start-sharded study
+        starts = study_starts(f32, dev)
+        rep = par.replicate(LocCMTObjective(prob11, opts, cfg11), meshes["mesh1"])
+        objs = dict(zip(meshes["mesh1"].devices, rep.parts))
+        follow = lambda ms: objs[ms.device](ms)      # the objective on the models' device
+        loc_d = torch.tensor(LOC, dtype=f64, device=dev)
+        study = {"unsharded": lambda f: minimize_multi_start(f, starts, max_iter=30, tol=3e-5)}
+        study.update({k: (lambda f, mesh=mesh: minimize_multi_start_sharded(
+            f, starts, mesh, max_iter=30, tol=3e-5).gather()) for k, mesh in meshes.items()})
+        results = {}
+        for label, solve in study.items():
+            fun = CountedObjective(follow)
+            res, n = chk.counted(lambda: solve(fun), what=f"study {label}")
+            evals = fun.values + fun.value_grads
+            err = torch.linalg.vector_norm(res.x.double() - loc_d, dim=1)
+            runs = {str(d): solver_runs(calls) for d, calls in fun.log.items()}
+            results[label] = res
+            launches[f"par_study_{label}"] = n
+            per_call[f"par_study_{label}"] = n / evals
+            same = (int((res.n_iter == results["unsharded"].n_iter).sum()),
+                    (res.x - results["unsharded"].x).abs().max().item())
+            print(f"[parallel] study {label}: {N_STARTS} starts, f32; batched evaluations "
+                  f"{evals}, kernel launches {n}; [value+grad calls, trials] per shard "
+                  f"{runs}; distance to the source max {err.max().item():.6f} km (bound "
+                  f"{STUDY_RADIUS_KM:g}); lanes with the unsharded n_iter {same[0]} of "
+                  f"{N_STARTS}, max |x - x_unsharded| {same[1]:.3e} km")
+            if n != evals:
+                raise AssertionError(f"study {label}: {n} launches for {evals} evaluations")
+            if not bool((err < STUDY_RADIUS_KM).all()):
+                raise AssertionError(f"study {label}: a start ends {err.max().item()} km "
+                                     f"from the source")
+    chk.check_held(held)
+    print(f"[parallel] kernel launches by device outside the timing runs: "
+          f"{cuda_distance.LAUNCHES_BY_DEVICE}")
+    checked_s = time.perf_counter() - t_phase
+
+    # timing runs
+    ms_by = {}
+    for name, unsharded, by_mesh, _ in cases:
+        ms_by[name, "unsharded"] = chk.timed(f"{name} unsharded", unsharded, 1, PAR_TIMED)
+        for label, (fn, shards) in by_mesh.items():
+            ms_by[name, label] = chk.timed(f"{name} {label}", fn, shards, PAR_TIMED)
+    for label, solve in study.items():
+        fun = CountedObjective(follow)
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        ms = host_median_ms(lambda: solve(fun), n=PAR_TIMED, warm=0)
+        evals = fun.values + fun.value_grads
+        print(f"[timing] parallel study {label}: {ms:.4f} ms per study (host clock, "
+              f"synchronized, median of {PAR_TIMED}); {evals} batched evaluations and "
+              f"{cuda_distance.LAUNCHES} kernel launches over the {PAR_TIMED} studies {card}")
+        if cuda_distance.LAUNCHES != evals:
+            raise AssertionError(f"study {label} timing: {cuda_distance.LAUNCHES} launches "
+                                 f"for {evals} evaluations")
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s ({checked_s:.1f} s before "
+          f"the timing runs)")
+    return launches, per_call
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1812,6 +2141,10 @@ def main() -> int:
     native, native_per_call = native_phase(dev, card, study_ms_by["multistart"])
     launches.update(native)
 
+    # 15. the parallel layer: meshes, trace-, node-, start-, grid- and dp x sp-sharding
+    parallel, parallel_per_call = parallel_phase(dev, card)
+    launches.update(parallel)
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -1821,7 +2154,8 @@ def main() -> int:
         "launches_per_call": {"loc64": launches["loc64"], "ricker": launches["ricker"],
                               "scan": launches["scan"], "layered": launches["layered"],
                               "layered_scan": launches["layered_scan"], **per_eval,
-                              **toolbox_per_call, **drivers_per_call, **native_per_call},
+                              **toolbox_per_call, **drivers_per_call, **native_per_call,
+                              **parallel_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

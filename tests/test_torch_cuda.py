@@ -517,3 +517,132 @@ def test_calcpdf_fmm_on_card_matches_cpu():
     cpu.calcpdf(lambdav=0.04, method="FMM")
     np.testing.assert_allclose(card.dfield, cpu.dfield, rtol=0, atol=1e-12)
     np.testing.assert_allclose(card.pdf, cpu.pdf, rtol=0, atol=1e-12)
+
+
+def _card_mesh(n=4):
+    from waveform_ot_torch import parallel as par
+
+    return par.make_mesh(n, device="cuda:0")
+
+
+def test_mesh_without_device_takes_the_cards():
+    from waveform_ot_torch import parallel as par
+
+    mesh = par.make_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(torch.cuda.device_count()))
+    with pytest.raises(ValueError, match="need"):
+        par.make_mesh(torch.cuda.device_count() + 1)
+
+
+def test_trace_sharded_loc_cmt_on_4_shards_of_one_card():
+    """pjit_batched_misfit over 4 shards of cuda:0, 8 stations (2 per shard),
+    float64: one launch per shard, value 1e-12 and gradient 1e-11 of max |g|
+    from the unsharded call on the card."""
+    from chip_smoke import DM, build_loc64_problem
+    from waveform_ot_torch import parallel as par
+    from waveform_ot_torch.inversion import loc_cmt_misfit
+
+    dev = torch.device("cuda", 0)
+    loc, cfg, prob = build_loc64_problem(8, torch.float64, dev)
+    m = loc + torch.tensor(DM, dtype=torch.float64, device=dev)
+    v0, g0 = loc_cmt_value_and_grad(m, prob, InvOptions(), cfg)
+    mesh = _card_mesh()
+    f = par.pjit_batched_misfit(lambda mm, pp: loc_cmt_misfit(mm, pp, InvOptions(), cfg), mesh)
+    mt = m.clone().requires_grad_(True)
+    before = cuda_distance.LAUNCHES
+    v1 = f(mt, par.shard_leading_axis(prob, mesh))
+    (g1,) = torch.autograd.grad(v1, mt)
+    assert cuda_distance.LAUNCHES - before == 4 and v1.device == dev
+    assert abs(v1.item() - v0.item()) <= 1e-12 * abs(v0.item())
+    assert (g1 - g0).abs().max().item() <= 1e-11 * g0.abs().max().item()
+
+
+def test_node_and_start_sharded_on_4_shards_of_one_card():
+    """misfit_grid_sharded (8 nodes, 2 per shard, one launch each) equals
+    misfit_grid on the card at 1e-12, float64; minimize_multi_start_sharded
+    on 8 starts takes one launch per shard per evaluation and ends where the
+    unsharded solve does: the same n_iter per lane, x within 1e-8 (the
+    backward's float64 atomics sum in another order each run, and the solve
+    carries that to 1.1e-10 in x)."""
+    from chip_smoke import LOC, build_loc64_problem
+    from waveform_ot_torch.inversion import (
+        loc_cmt_misfit, minimize_lbfgs_batched, misfit_grid, misfit_grid_sharded,
+        minimize_multi_start_sharded,
+    )
+
+    dev = torch.device("cuda", 0)
+    _, cfg, prob = build_loc64_problem(4, torch.float64, dev)
+    ms = torch.tensor(LOC, dtype=torch.float64, device=dev) + torch.as_tensor(
+        np.random.default_rng(3).uniform(-8, 8, (8, 3)), device=dev)
+    mesh = _card_mesh()
+    before = cuda_distance.LAUNCHES
+    got = misfit_grid_sharded(ms, prob, InvOptions(), cfg, mesh)
+    assert cuda_distance.LAUNCHES - before == 4 and len(got.parts) == 4
+    ref = misfit_grid(ms, prob, InvOptions(), cfg)
+    assert ((got.gather() - ref).abs() / ref.abs()).max().item() <= 1e-12
+    calls = []
+
+    def fun(x):
+        calls.append(x.shape[0])
+        return loc_cmt_misfit(x, prob, InvOptions(), cfg)
+
+    before = cuda_distance.LAUNCHES
+    res = minimize_multi_start_sharded(fun, ms, mesh, max_iter=15, tol=1e-6).gather()
+    assert cuda_distance.LAUNCHES - before == len(calls) and set(calls) == {2}
+    un = minimize_lbfgs_batched(fun, ms, max_iter=15, tol=1e-6)
+    assert torch.equal(res.n_iter, un.n_iter)
+    assert (res.x - un.x).abs().max().item() <= 1e-8
+
+
+def test_grid_and_dp_sp_sharded_on_one_card():
+    """120x200 fingerprints of 300-sample polylines, float64: the
+    grid-sharded misfit of one polyline over 4 shards of cuda:0 and dp x sp
+    of two on a (2, 2) mesh of it, one launch per shard, value 1e-12 and
+    gradient 1e-11 of max |g| from the unsharded pipeline on the card."""
+    from waveform_ot_torch import parallel as par
+    from waveform_ot_torch.ops import Density1D, make_density_1d
+    from waveform_ot_torch.ops.marginal import marg_wasserstein_value
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(5)
+    t = np.linspace(0.0, 1.0, 300)
+    arr = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    verts = arr(np.stack([np.broadcast_to(t, (2, 300)), 0.5 + 0.3 * np.sin(
+        6 * t[None] + rng.standard_normal((2, 1)))], -1))
+    tgrid, ugrid = arr(np.linspace(0.0, 1.0, 200)), arr(np.linspace(0.0, 1.0, 120))
+    tt = make_density_1d(arr(rng.random(200) + 0.1), tgrid)
+    tu = make_density_1d(arr(rng.random(120) + 0.1), ugrid)
+    rows = lambda d, k: Density1D(*(a.expand(k, *a.shape) for a in d))
+
+    def plain(v):
+        k = v.shape[0]
+        u2d = tfp.density_from_distance(tfp.distance_field_diff(
+            v, tgrid.expand(k, 200), ugrid.expand(k, 120)), 0.04)
+        wt, wu = marg_wasserstein_value(u2d, tgrid.expand(k, 200), ugrid.expand(k, 120),
+                                        rows(tt, k), rows(tu, k))
+        return (0.5 * wt + 0.5 * wu).sum()
+
+    def vg(fn, v):
+        v = v.clone().requires_grad_(True)
+        before = cuda_distance.LAUNCHES
+        out = fn(v)
+        (g,) = torch.autograd.grad(out, v)
+        return out.item(), g, cuda_distance.LAUNCHES - before
+
+    mesh = _card_mesh()
+    fn = par.grid_sharded_marg_misfit(mesh, lambdav=0.04)
+    tg = par.shard_grid_axis(tgrid, mesh)
+    one = verts[0]
+    v0, g0, n0 = vg(lambda v: plain(v[None]), one)
+    v1, g1, n1 = vg(lambda v: sum(0.5 * w for w in fn(v, tg, ugrid, tt, tu, 0.0)), one)
+    mesh2 = par.make_mesh_2d(2, 2, device="cuda:0")
+    dp = par.dp_sp_marg_misfit(mesh2, lambdav=0.04)
+    tg2 = par.shard_grid_axis(tgrid, mesh2, axis_name="seq")
+    v2, g2, n2 = vg(plain, verts)
+    v3, g3, n3 = vg(lambda v: dp(v, tg2, ugrid, rows(tt, 2), rows(tu, 2),
+                                 torch.zeros(2, device=dev, dtype=v.dtype)), verts)
+    assert (n0, n1, n2, n3) == (1, 4, 1, 4)
+    for (v, g), (vr, gr) in (((v1, g1), (v0, g0)), ((v3, g3), (v2, g2))):
+        assert abs(v - vr) <= 1e-12 * abs(vr)
+        assert (g - gr).abs().max().item() <= 1e-11 * gr.abs().max().item()

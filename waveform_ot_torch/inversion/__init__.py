@@ -15,11 +15,11 @@ from waveform_ot_torch.inversion.windows import (  # noqa: F401
 from waveform_ot_torch.inversion.loc_cmt import (  # noqa: F401
     InvOptions, LocCMTObjective, LocCMTProblem, build_loc_cmt_problem,
     layered_misfit_grid, loc_cmt_misfit, loc_cmt_value_and_grad,
-    misfit_from_seis, misfit_grid, predicted_seismograms,
+    misfit_from_seis, misfit_grid, misfit_grid_sharded, predicted_seismograms,
 )
 from waveform_ot_torch.inversion.lbfgs import (  # noqa: F401
     LBFGSResult, minimize_lbfgs, minimize_lbfgs_batched, minimize_lbfgs_batched_host,
-    minimize_multi_start, minimize_scipy,
+    minimize_multi_start, minimize_multi_start_sharded, minimize_scipy,
 )
 from waveform_ot_torch.inversion.trace import InversionTrace  # noqa: F401
 from waveform_ot_torch.inversion.l2 import ls_misfit, window_union  # noqa: F401

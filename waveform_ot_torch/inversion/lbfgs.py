@@ -27,17 +27,19 @@ one distance-field launch.
     (:func:`_zoom_lbfgs`) where JAX vmaps one lane's solve. Each zoom trial
     is one value+grad call of all lanes; finished lanes are frozen.
   * :func:`minimize_multi_start` — the 64-start study's entry point.
+  * :func:`minimize_multi_start_sharded` — the starts split over a mesh,
+    :func:`minimize_lbfgs_batched` on each shard's starts.
   * :func:`minimize_scipy` — scipy L-BFGS-B over a (value, grad) function.
-
-Not ported: ``minimize_multi_start_sharded``.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 
 class LBFGSResult(NamedTuple):
@@ -551,6 +553,44 @@ def minimize_multi_start(fun: Callable, x0s, max_iter: int = 200,
     if method == "zoom":
         return _zoom_lbfgs(fun, x0s, max_iter, tol, memory_size=10)
     raise ValueError(f"unknown method {method!r}: 'batched' or 'zoom'")
+
+
+def minimize_multi_start_sharded(fun: Callable, x0s, mesh, axis_name: str = "batch",
+                                 max_iter: int = 200, tol: float = 1e-8):
+    """Multi-start over a mesh: the starts ``x0s`` (k, n) split over the
+    shards (the mesh size must divide k), and each shard runs
+    :func:`minimize_lbfgs_batched` on its starts with its own early exit, so
+    a shard whose lanes converge stops without waiting for the slowest lane
+    of the study. No communication. Returns a
+    :class:`waveform_ot_torch.parallel.Sharded` of per-shard
+    :class:`LBFGSResult` (``.gather()`` gives one LBFGSResult of k lanes on
+    the lead device).
+
+    ``fun`` (batched, as everywhere here) must evaluate on its shard's
+    device: an nn.Module such as
+    :class:`waveform_ot_torch.inversion.LocCMTObjective` is copied to each
+    distinct device; a function must follow the device of ``x``. The solver
+    reads a flag from the device every iteration and every line-search
+    trial, so each distinct device gets its own host thread, in which the
+    shards on that device run one after another.
+    """
+    from waveform_ot_torch.parallel.mesh import Sharded, _split_leading, replicate
+
+    mesh.require_1d(axis_name, "minimize_multi_start_sharded")
+    xs = _split_leading(x0s, mesh, axis_name, "minimize_multi_start_sharded")
+    funs = replicate(fun, mesh)
+    solve = lambda i: minimize_lbfgs_batched(funs.parts[i], xs.parts[i], max_iter=max_iter,
+                                             tol=tol)
+    by_device = [[i for i in range(mesh.size) if mesh.devices[i] == d] for d in mesh.distinct]
+    results = [None] * mesh.size
+    with ThreadPoolExecutor(len(by_device)) as pool:
+        runs = [(shards, pool.submit(lambda s: [solve(i) for i in s], shards))
+                for shards in by_device]
+        for shards, run in runs:
+            for i, res in zip(shards, run.result()):
+                results[i] = res
+    axes = tree_map(lambda a: 0 if isinstance(a, torch.Tensor) else None, results[0])
+    return Sharded(mesh, tuple(results), axes, axis_name)
 
 
 def minimize_scipy(value_and_grad_fn: Callable, x0: torch.Tensor,

@@ -60,6 +60,9 @@ class LocCMTProblem(NamedTuple):
     mxyz_fixed: torch.Tensor     # (3,3) moment tensor when cmt=False
     fc: torch.Tensor             # source pulse corner frequency
 
+    # the fields split with the stations by parallel.pjit_batched_misfit
+    trace_fields = ("seis_obs", "windows", "targets", "stations")
+
 
 def _clamp_depth_straight_through(z, zmin):
     """Value max(z, zmin) with gradient 1 everywhere."""
@@ -193,6 +196,26 @@ def misfit_grid(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig,
     grid). For values and gradients at every node, call
     :func:`loc_cmt_value_and_grad` on the same batch."""
     return loc_cmt_misfit(ms, prob, opts, cfg, forward=forward)
+
+
+def misfit_grid_sharded(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig,
+                        mesh, axis_name: str = "batch", forward: Callable | None = None):
+    """Misfit-surface scan over a mesh: the model nodes ``ms`` (k, nm) split
+    over the shards (the mesh size must divide k), the problem replicated,
+    and each shard's :func:`misfit_grid` of its nodes in one evaluation (one
+    kernel launch on the card), with no communication. Returns the misfits
+    as a :class:`waveform_ot_torch.parallel.Sharded` of (k/n,) per shard;
+    ``.gather()`` gives (k,) on the lead device.
+
+    ``forward`` is replicated too: an nn.Module is copied to each distinct
+    device; a function must compute on the device of its sources (see
+    :mod:`waveform_ot_torch.parallel.mesh`).
+    """
+    from waveform_ot_torch.parallel.mesh import sharded_map
+
+    f = sharded_map(lambda m, p, fwd: misfit_grid(m, p, opts, cfg, forward=fwd),
+                    mesh, axis_name=axis_name)
+    return f(ms, prob, forward)
 
 
 class LocCMTObjective(TensorTreeModule):

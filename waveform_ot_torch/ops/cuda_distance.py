@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -34,6 +35,9 @@ from waveform_ot_torch import _build
 
 LAUNCHES = 0
 """Kernel launches in this process; incremented once per launch."""
+LAUNCHES_BY_DEVICE: dict[str, int] = {}
+"""Kernel launches in this process by device ("cuda:0", ...)."""
+_COUNT_LOCK = threading.Lock()   # a mesh's per-device threads launch at once
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SYMBOLS = {torch.float32: "wot_distance_field_f32",
@@ -100,7 +104,6 @@ def distance_field_cuda(verts, tgrid, ugrid):
     of one dtype, float32 or float64, on one device. Returns d, lam
     (B, nu, ntg), iclose (B, nu, ntg) int32 and dvec (B, nu, ntg, 2).
     """
-    global LAUNCHES
     if verts.device.type != "cuda":
         raise ValueError(f"verts must be a CUDA tensor, got {verts.device}")
     if verts.dtype not in _SYMBOLS:
@@ -139,5 +142,13 @@ def distance_field_cuda(verts, tgrid, ugrid):
     if rc != 0:
         msg = lib.wot_cuda_error_string(rc).decode()
         raise RuntimeError(f"distance_field kernel launch failed: {msg} ({rc})")
-    LAUNCHES += 1
+    count_launch(dev)
     return d, iclose, lam, dvec
+
+
+def count_launch(device: torch.device) -> None:
+    """Add one launch on ``device`` to LAUNCHES and LAUNCHES_BY_DEVICE."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_DEVICE[str(device)] = LAUNCHES_BY_DEVICE.get(str(device), 0) + 1
