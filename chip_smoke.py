@@ -141,6 +141,25 @@ is non-zero:
                 shard per evaluation (asserted), every launch outside the
                 timing runs held bit for bit (held_launches); host-clock
                 medians of 3, unsharded and per mesh.
+ 16. examples   the port's nine example scripts (examples/torch_*.py;
+                examples_phase), each through its run() at the script's
+                defaults on the card, ricker_inversion also with zoom=True,
+                and multi_start_basins's joint far-field mode (cmt=True,
+                physics="farfield") through its build_study and solve cut to
+                EXAMPLE_CMT_ITERS iterations: each script's own assertions;
+                its kernel launches
+                counted and asserted (one per objective evaluation, per
+                surface or profile, per scan call; none for the point masses
+                or the least-squares moment tensors); every launch outside
+                the scaling study's timing runs held bit for bit
+                (held_launches); the point masses, the migration self-test,
+                the derivative walkthrough, the Ricker scipy inversion and the
+                receiver function's fields held against the same run on the
+                CPU (1e-9 relative; the same iterations and 1e-6; phase 14a's
+                bars); each script's host wall time; the scaling study's
+                value+grad time and traces/s at 64, 256 and 1,024 stations,
+                and the kernel at loc1024's 3,072 traces (bit for bit, device
+                time, bound, share).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -204,8 +223,6 @@ STUDY_TIMED = 3                  # study and scan timings: median of 3
 KERNEL_NAME = "distance_field_kernel"  # the kernel's symbol, as ptxas and the profiler name it
 SCAN_CHECKED = 8                 # scan nodes held against float64 on the CPU
 RICKER_TRUTH = (0.0, 1.6, 1.0)
-RICKER_START = (0.7, 1.1, 1.3)
-RICKER_GRID6 = (-2.0, 7.0, -2.0, 2.6, 80, 512)
 RICKER_TRUTH_TOL = 0.02          # inversion result against the truth
 RICKER_X_TOL = 1e-6              # card inversion against the CPU one
 # The bound counts the operations these inputs need, against the H100 SXM's
@@ -310,6 +327,23 @@ PAR_GRAD_TOL_F64 = 1e-11       # ... of max |g|
 PAR_LAYERED_TOL_F64 = 1e-9     # JAX's station-sharded contract (tests/test_parallel.py:411-431)
 PAR_DP_SP_SHIFTS = (RF_SHIFT, -RF_SHIFT)
 PAR_TIMED = 3                  # host-clock median of 3 per call
+# phase 16: the port's example scripts (examples/torch_*.py) at their defaults.
+# Launches per run where they do not depend on the data: derivative
+# walkthrough, stage 1 one gradient and 4 x 2 central differences, stage 2 the
+# observed fingerprint, one gradient and 3 x 2, stage 3 one gradient and 3 x 2;
+# misfit surfaces, the observed fingerprint, the W1 and W2 profiles, the W2
+# surface twice (its timing) and the W1 surface
+EXAMPLE_FIXED_LAUNCHES = {"point_mass_demo": 0, "reference_migration": 2,
+                          "derivative_walkthrough": 9 + 8 + 7,
+                          "ricker_misfit_surfaces": 1 + 2 + 3, "receiver_function_demo": 1}
+# the joint far-field study (multi_start_basins --cmt --physics farfield) at its
+# default 600 iterations made 3,919 OT evaluations on an H100: 25.0 s of runs and
+# ~80 s of held checks (PERF.md), past the phase's budget alone; phase 16 runs
+# it through the script's build_study and solve at this many
+EXAMPLE_CMT_ITERS = 100
+SCALING_SIZES = (64, 256, 1024)   # stations of the scaling study's timings
+# per size: the observed fingerprints, benchmark's 2 warm-up and 30 timed calls, one more
+SCALING_CALLS = 1 + 2 + 30 + 1
 
 
 def build_loc64_problem(nr: int, dtype, device):
@@ -413,27 +447,12 @@ def scan_nodes(dtype, device) -> torch.Tensor:
 
 
 def build_ricker_inversion(dtype, device):
-    """The bench's Ricker inversion (``bench.bench_ricker``) in the port:
-    observed double Ricker at the truth plus 0.005*max|w| noise from numpy
-    default_rng(42), grid6 (-2, 7, -2, 2.6, 80, 512), lambda 0.03, alpha
-    0.5. Returns (prob, cfg, start)."""
-    from waveform_ot_torch.inversion import (
-        TraceConfig, build_target, grid6_to_window, make_ricker_problem,
-    )
-    from waveform_ot_torch.models import ricker_wavelet
-
-    arr = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    trange = (-2.0, 7.0)
-    tobs, wobs = ricker_wavelet(*arr(RICKER_TRUTH), trange=trange)
-    rng = np.random.default_rng(42)
-    wobs = wobs + 0.005 * float(wobs.abs().max()) * arr(rng.standard_normal(wobs.shape))
-    win, spec = grid6_to_window(RICKER_GRID6, dtype=dtype, device=device)
-    cfg = TraceConfig(nu=spec.nu, ntg=spec.ntg, lambdav=0.03, q=None, p=2, transform=True)
-    with torch.no_grad():
-        targets = build_target(tobs, wobs[None], win, cfg)
-    prob, cfg = make_ricker_problem(targets, RICKER_GRID6, trange=trange, alpha=0.5,
-                                    lambdav=0.03)
-    return prob, cfg, arr(RICKER_START)
+    """The bench's Ricker inversion (``bench.bench_ricker``), which is
+    examples/torch_ricker_inversion.py's problem: observed double Ricker at
+    the truth plus 0.005*max|w| noise from numpy default_rng(42), grid6
+    (-2, 7, -2, 2.6, 80, 512), lambda 0.03, alpha 0.5. Returns (prob, cfg,
+    start)."""
+    return example("ricker_inversion").build_problem(device, dtype=dtype)
 
 
 def rf_waveform(shift: float = 0.0):
@@ -1873,6 +1892,229 @@ def parallel_phase(dev, card: str) -> tuple[dict, dict]:
     return launches, per_call
 
 
+def example(name: str):
+    """The module examples/torch_<name>.py, imported without running its main."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  REPO / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(dev, card: str, variant) -> tuple[dict, dict, list]:
+    """Phase 16: the port's nine example scripts on the card, each through
+    its ``run`` at the script's defaults (and ricker_inversion with
+    zoom=True; multi_start_basins's joint far-field mode through its
+    build_study and solve at EXAMPLE_CMT_ITERS iterations). Each
+    script's own assertions hold; its kernel launches are counted and
+    asserted (one per objective evaluation, scan or surface, none for the
+    point masses or a least-squares moment tensor); every launch outside the
+    scaling study's timing runs is held bit for bit against the plain field
+    (held_launches; the study's calls are held by the same calls at its
+    shapes outside its timing); where the same run on the CPU is cheap (the
+    point masses, the migration self-test, the derivative walkthrough, the
+    Ricker scipy inversion, the receiver function's fields) the card is held
+    against it. Prints each script's host wall time, and loc1024's
+    value+grad time, traces/s and the kernel's device time and share at its
+    3,072 traces. Returns the launches by script, the launches per
+    evaluation or per run, and loc1024's by_shape row."""
+    from waveform_ot_torch.ops import DistanceField, cuda_distance, distance_field_torch
+
+    cpu = "cpu"
+    t_phase = time.perf_counter()
+    launches, per_call = {}, {}
+    checks = PhaseChecks("examples", card)
+    counted, hold = checks.counted, checks.hold
+    mods = {name: example(name) for name in (
+        "point_mass_demo", "reference_migration", "ricker_inversion", "ricker_misfit_surfaces",
+        "derivative_walkthrough", "receiver_function_demo", "loc_cmt_inversion",
+        "multi_start_basins", "scaling_study")}
+
+    def rel(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    with held_launches("examples") as held:
+        def on_card(key, name, want=None, call=None, how=None, **kw):
+            """run(dev, **kw), or ``call()`` described by ``how``, counted
+            and timed (host clock, the checks' time taken out): (result,
+            launches)."""
+            t0, c0 = time.perf_counter(), held["check_s"]
+            r, n = counted(call or (lambda: mods[name].run(dev, **kw)), want, f"examples {key}")
+            wall = time.perf_counter() - t0 - (held["check_s"] - c0)
+            launches[f"examples_{key}"] = n
+            how = how or "run(" + ", ".join(f"{k}={v!r}" for k, v in kw.items()) + ")"
+            print(f"[examples] {key}: {how} on the card in {wall:.3f} s (host clock, one run, "
+                  f"the launch checks' time taken out), kernel launches {n} {card}")
+            return r, n
+
+        # 1. the point masses: no distance field
+        r, n = on_card("point_mass_demo", "point_mass_demo", 0)
+        c = mods["point_mass_demo"].run(cpu)
+        print(f"[examples] point masses: W1 {r['w1']!r} W2^2 {r['w2']!r} linprog "
+              f"{r['w2_linprog']!r} numint {r['w1_numint']!r} {r['w2_numint']!r}")
+        for k in ("w1", "w2", "plan", "path_pos", "path_mass"):
+            hold(f"point masses {k} card vs cpu, relative", rel(r[k], c[k]), CLOSED_RTOL)
+        per_call["examples_point_mass_demo"] = n
+
+        # 2. the reference-migration self-test: one launch per calcpdf
+        r, n = on_card("reference_migration", "reference_migration", 2)
+        c = mods["reference_migration"].run(cpu)
+        print(f"[examples] migration: W1 {r['w1']!r} W2^2 {r['w2']!r} Sinkhorn_MS "
+              f"{r['w2_sinkhorn']!r} MargWasserstein {r['marg_w'].tolist()} sliced {r['sliced']!r}")
+        for k in ("w1", "w2", "w2_sinkhorn", "plan", "marg_w", "sliced"):
+            hold(f"migration {k} card vs cpu, relative", rel(r[k], c[k]), CLOSED_RTOL)
+        per_call["examples_reference_migration"] = n
+
+        # 3. the Ricker inversion: scipy (card vs cpu) and the zoom
+        for zoom in (False, True):
+            key = "ricker_inversion_zoom" if zoom else "ricker_inversion"
+            r, n = on_card(key, "ricker_inversion", zoom=zoom)
+            print(f"[examples] {key}: x {r['x'].tolist()} after {r['nit']} iterations, "
+                  f"{r['evaluations']} evaluations, w2 {r['fun']!r}, max |x - truth| "
+                  f"{r['err'].max():.3e}")
+            if n != 1 + r["evaluations"]:
+                raise AssertionError(f"{key}: {n} launches for the observed fingerprint and "
+                                     f"{r['evaluations']} evaluations")
+            per_call[f"examples_{key}"] = (n - 1) / r["evaluations"]
+            if not zoom:
+                c = mods["ricker_inversion"].run(cpu)
+                hold("ricker_inversion card vs cpu, max |x diff|",
+                     float(np.abs(r["x"] - c["x"]).max()), RICKER_X_TOL)
+                if r["nit"] != c["nit"]:
+                    raise AssertionError(f"ricker_inversion: {r['nit']} iterations on the card, "
+                                         f"{c['nit']} on the cpu")
+
+        # 4. the misfit surfaces: one launch per W profile and surface
+        r, n = on_card("ricker_misfit_surfaces", "ricker_misfit_surfaces",
+                       EXAMPLE_FIXED_LAUNCHES["ricker_misfit_surfaces"])
+        print(f"[examples] surfaces: profile local minima {r['profile_minima']}, minima "
+              f"{ {k: v.tolist() for k, v in r['minima'].items()} }")
+        per_call["examples_ricker_misfit_surfaces"] = n
+
+        # 5. the derivative walkthrough, float64 on the card
+        r, n = on_card("derivative_walkthrough", "derivative_walkthrough",
+                       EXAMPLE_FIXED_LAUNCHES["derivative_walkthrough"])
+        c = mods["derivative_walkthrough"].run(cpu)
+        print(f"[examples] derivative walkthrough: max FD errors {r['err1'].max():.3e} "
+              f"{r['err2'].max():.3e} {r['err3'].max():.3e} (bound 1e-6), W2 {r['w2']!r}")
+        for k in ("grad1", "grad2", "grad3", "w2", "dm"):
+            hold(f"derivative walkthrough {k} card vs cpu, relative", rel(r[k], c[k]), CLOSED_RTOL)
+        per_call["examples_derivative_walkthrough"] = n
+
+        # 6. the receiver-function demo, 800x600
+        r, n = on_card("receiver_function_demo", "receiver_function_demo",
+                       EXAMPLE_FIXED_LAUNCHES["receiver_function_demo"])
+        c = mods["receiver_function_demo"].run(cpu)
+        print(f"[examples] RF: Dmin {r['dmin']!r} Dmax {r['dmax']!r} PDFmin {r['pdfmin']!r} "
+              f"PDFmax {r['pdfmax']!r}; FMM vs exact over the band median {r['band_median']!r} "
+              f"max {r['band_max']!r}")
+        for k in ("d_exact", "pdf"):
+            hold(f"RF {k} card vs cpu, max abs",
+                 float(np.abs(r["figures"][k] - c["figures"][k]).max()), PDF_ATOL)
+        hold("RF FMM vs exact, median |d| over d > 2/nu", r["band_median"], FMM_MEDIAN_BOUND)
+        hold("RF FMM vs exact, max |d| over d > 2/nu", r["band_max"], FMM_MAX_BOUND)
+        per_call["examples_receiver_function_demo"] = n
+
+        # 7. the loc/CMT inversions and scan through the layered physics: the
+        # observed fingerprints, one launch per OT evaluation, none for L2, and
+        # one per scan call (layered_misfit_grid: every node in one evaluation)
+        r, n = on_card("loc_cmt_inversion", "loc_cmt_inversion")
+        inv = r["inversions"]
+        print(f"[examples] loc/CMT layered: OT |err| {inv['OT']['err']:.4f} km in "
+              f"{inv['OT']['nit']} iterations, {inv['OT']['nfev']} evaluations; L2 |err| "
+              f"{inv['L2']['err']:.4f} km in {inv['L2']['nit']} iterations; scan of "
+              f"{len(r['scan']['models'])} nodes, minimum at {r['scan']['minimum'].tolist()}")
+        if n != 1 + inv["OT"]["nfev"] + 2:
+            raise AssertionError(f"loc_cmt_inversion: {n} launches for 1 + {inv['OT']['nfev']} "
+                                 f"OT evaluations + 2 scans")
+        per_call["examples_loc_cmt_inversion"] = (n - 3) / inv["OT"]["nfev"]
+
+        # 8. the studies: layered (default) and the joint far-field mode, cut
+        # to EXAMPLE_CMT_ITERS iterations (see there); the 16 least-squares
+        # tensors of the joint mode launch nothing
+        msb = mods["multi_start_basins"]
+
+        def joint_cut():
+            st = msb.build_study(dev, cmt=True, physics="farfield")
+            return {"starts": len(st["starts"]),
+                    **{m: msb.solve(st, m, max_iter=EXAMPLE_CMT_ITERS) for m in ("OT", "L2")}}
+
+        for key, call, how in (
+                ("multi_start_basins", None, None),
+                ("multi_start_basins_cmt", joint_cut, "build_study(cmt=True, physics='farfield'), "
+                 f"solve(max_iter={EXAMPLE_CMT_ITERS}) per misfit")):
+            r, n = on_card(key, "multi_start_basins", call=call, how=how)
+            for m in ("OT", "L2"):
+                o = r[m]
+                print(f"[examples] {key} {m}: {r['starts']} starts, {100 * o['frac']:.0f}% within "
+                      f"2 km, median |err| {np.median(o['dist']):.3f} km, {o['evaluations']} "
+                      f"batched evaluations, {o['ls_failed']} failed line-search lanes"
+                      + (f", median CMT rel err {np.median(o['cmt_rel_err']):.3f}"
+                         if "cmt_rel_err" in o else ""))
+            if n != 1 + r["OT"]["evaluations"]:
+                raise AssertionError(f"{key}: {n} launches for 1 + {r['OT']['evaluations']} OT "
+                                     f"evaluations")
+            per_call[f"examples_{key}"] = (n - 1) / r["OT"]["evaluations"]
+
+        # 9. the scaling study's shapes, held outside its timing runs
+        sc = mods["scaling_study"]
+        _, n = counted(lambda: [sc.time_value_and_grad(nr, dev, n_iter=1) for nr in SCALING_SIZES]
+                       + [sc.inversions(k, dev) for k in (16, 32)])
+    checks.check_held(held)
+
+    # 9. the scaling study, timed (its launches counted, not held)
+    t0 = time.perf_counter()
+    r, n = counted(lambda: sc.run(dev))
+    wall = time.perf_counter() - t0
+    evals = sum(o["evaluations"] for o in r["inversions"])
+    want = SCALING_CALLS * len(SCALING_SIZES) + len(r["inversions"]) + evals
+    print(f"[examples] scaling_study: run() on the card in {wall:.3f} s (host clock, one run), "
+          f"kernel launches {n} ({SCALING_CALLS} per size, 1 per inversion problem and {evals} "
+          f"batched evaluations) {card}")
+    if n != want:
+        raise AssertionError(f"scaling_study: {n} launches, not {want}")
+    launches["examples_scaling_study"] = n
+    per_call["examples_scaling_study"] = 1.0
+    for s in r["value_and_grad"]:
+        print(f"[examples] loc{s['stations']}: value+grad {s['seconds'] * 1e3:.4f} ms/call (host "
+              f"clock, synchronized, mean of 30) = {s['traces_per_s']:.1f} traces/s, "
+              f"{s['traces']} traces, f32 {card}")
+    for o in r["inversions"]:
+        print(f"[examples] {o['k']} simultaneous inversions: {o['seconds'] * 1e3:.4f} ms "
+              f"({o['ms_per_inversion']:.4f} ms/inversion), {100 * o['converged']:.0f}% within "
+              f"2 km, median iterations {o['median_iters']} {card}")
+
+    # loc1024's kernel: bit for bit the plain field, its device time and share
+    loc, cfg, prob = build_loc64_problem(1024, torch.float32, dev)
+    with torch.no_grad():
+        args = loc_field_inputs((loc + torch.tensor(DM, dtype=torch.float32, device=dev))[None],
+                                prob, cfg)
+    got = DistanceField(*cuda_distance.distance_field_cuda(*args))
+    ref = distance_field_torch(*args)
+    rep = compare_fields(got, ref, TOL[torch.float32])
+    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+    k = device_ms(lambda: cuda_distance.distance_field_cuda(*args), launches=BACK_TO_BACK,
+                  samples=SAMPLES)
+    plain = device_ms(lambda: distance_field_torch(*args), launches=PLAIN_BACK_TO_BACK)
+    bound, bound_by = kernel_bound(*args)
+    s_split, ptx = variant(args)
+    row = {"shape": "loc1024", "dtype": "float32", "traces": args[0].shape[0], "S": s_split,
+           "ms": k, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+           "share": bound / k}
+    print(f"[timing] distance field loc1024 float32 B={args[0].shape[0]} S={s_split}: kernel "
+          f"{k:.6f} ms (device, {BACK_TO_BACK} back-to-back launches, median of {SAMPLES}), "
+          f"bound {bound:.6f} ms ({bound_by}), share {bound / k:.4f}, plain {plain:.4f} ms "
+          f"({PLAIN_BACK_TO_BACK} back-to-back calls); bit-identical {same}, "
+          f"{json.dumps(rep)}; ptxas: {ptx} {card}")
+    if not same:
+        raise AssertionError("the kernel at loc1024 differs from the plain field")
+    print(f"[examples] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, per_call, [row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2145,6 +2387,11 @@ def main() -> int:
     parallel, parallel_per_call = parallel_phase(dev, card)
     launches.update(parallel)
 
+    # 16. the port's example scripts, loc1024 among them
+    examples, examples_per_call, examples_rows = examples_phase(dev, card, variant)
+    launches.update(examples)
+    rows.extend(examples_rows)
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -2155,7 +2402,7 @@ def main() -> int:
                               "scan": launches["scan"], "layered": launches["layered"],
                               "layered_scan": launches["layered_scan"], **per_eval,
                               **toolbox_per_call, **drivers_per_call, **native_per_call,
-                              **parallel_per_call},
+                              **parallel_per_call, **examples_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

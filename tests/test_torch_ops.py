@@ -154,14 +154,52 @@ def test_error_taxonomy_mirrors_jax():
     assert t_errors.FMMlibraryError is t_errors.FMMLibraryError
 
 
-def test_import_does_not_load_jax():
-    code = ("import sys, waveform_ot_torch, waveform_ot_torch.convert; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m.startswith('waveform_ot_tpu')]; print(bad); "
-            "sys.exit(1 if bad else 0)")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+# the port's entry points beside the package: chip_smoke.py and the example scripts
+PORT_SCRIPTS = ["chip_smoke.py"] + sorted(
+    f"examples/{name}" for name in os.listdir(os.path.join(REPO, "examples"))
+    if name.startswith("torch_") and name.endswith(".py"))
+IMPORTED = ["waveform_ot_torch", *PORT_SCRIPTS]
+
+
+def _import_check(module: str) -> str:
+    """Python code that imports ``module`` (the package and its convert, or
+    a script by path, without running its main) and exits 1 if any jax* or
+    waveform_ot_tpu* module got loaded."""
+    if module.endswith(".py"):
+        load = ("import importlib.util, sys; spec = importlib.util.spec_from_file_location("
+                f"'under_test', {module!r}); "
+                "spec.loader.exec_module(importlib.util.module_from_spec(spec)); ")
+    else:
+        load = "import sys, waveform_ot_torch, waveform_ot_torch.convert; "
+    return (load + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m.startswith('waveform_ot_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+
+
+@pytest.fixture(scope="module")
+def import_runs():
+    """Each module of IMPORTED imported in a fresh interpreter of its own,
+    all started together: {module: (exit code, output)}."""
+    procs = {m: subprocess.Popen([sys.executable, "-c", _import_check(m)], cwd=REPO,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for m in IMPORTED}
+    runs = {}
+    try:
+        for m, proc in procs.items():
+            out, _ = proc.communicate(timeout=180)
+            runs[m] = (proc.returncode, out)
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    return runs
+
+
+@pytest.mark.parametrize("module", IMPORTED)
+def test_import_does_not_load_jax(import_runs, module):
+    """Importing the package, chip_smoke.py or a port example script loads
+    no jax* and no waveform_ot_tpu* module."""
+    rc, out = import_runs[module]
+    assert rc == 0, out
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -174,6 +212,29 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build("distance_field")
     assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())
+
+
+def test_package_data_ships_every_compiled_source():
+    """pyproject.toml's package-data covers every C, C++ and CUDA source of
+    waveform_ot_torch, among them the two that _build compiles (the CUDA
+    kernel and the native solvers), so a non-editable install can build
+    them."""
+    import tomllib
+    from pathlib import Path
+
+    from waveform_ot_torch import native
+
+    repo = Path(REPO)
+    with open(repo / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    shipped = {src for pkg, patterns in data.items() for pat in patterns
+               for src in (repo / pkg.replace(".", "/")).glob(pat)}
+    pkg = repo / "waveform_ot_torch"
+    sources = {src for ext in ("*.cu", "*.cuh", "*.cpp", "*.cc", "*.c", "*.h")
+               for src in pkg.rglob(ext) if "_build" not in src.parts}
+    compiled = {native._SRC.resolve(), *(p.resolve() for p in _build._SRC_DIR.glob("*.cu"))}
+    assert compiled <= {s.resolve() for s in sources} and len(compiled) == 2
+    assert {s.resolve() for s in sources} <= {s.resolve() for s in shipped}
 
 
 def test_build_key_covers_source_and_flags(monkeypatch):

@@ -148,6 +148,14 @@ def test_benchmark_is_positive_and_calls_as_asked():
     assert sec > 0.0 and len(calls) == 9
 
 
+def test_timed_and_device_label_on_the_cpu():
+    """timed returns the call's result and its host-clock seconds (no card
+    here, so no synchronize); device_label names the CPU "cpu"."""
+    out, sec = profiling.timed(lambda a: a * 2, 21)
+    assert out == 42 and sec >= 0.0
+    assert profiling.device_label("cpu") == profiling.device_label(torch.device("cpu")) == "cpu"
+
+
 def test_top_device_ops_names_real_operators():
     """On the CPU the ranking is by the operators' self time: names of aten
     operators, times positive and descending, at most ``top`` of them."""

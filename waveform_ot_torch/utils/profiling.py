@@ -8,6 +8,9 @@ objects (tcalc_fp/tcalc_pdf, FingerprintLib.py:169-177). This module gives:
     synchronized with the card when the output lives there;
   * :func:`host_median_ms` — the median host-clock milliseconds of one call,
     synchronized before and after each;
+  * :func:`timed` — one call's result and its host-clock seconds,
+    synchronized with the card when one is present; :func:`device_label`
+    names the device a time was taken on;
   * :func:`events_ms` and :func:`device_ms` — device time by CUDA events,
     one run or the median per call of back-to-back runs queued behind a spin
     kernel;
@@ -72,6 +75,27 @@ def host_median_ms(fn: Callable, n: int = 20, warm: int = 3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def timed(fn: Callable, *args):
+    """(fn(*args), host-clock seconds of the call). When a card is present
+    the call starts and ends with ``torch.cuda.synchronize``, so the time
+    covers its device work."""
+    card = torch.cuda.is_available()
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if card:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_label(device) -> str:
+    """The card's name (``torch.cuda.get_device_name``) for a CUDA device,
+    else the device's type, to print beside a time taken on it."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
 
 
 def events_ms(run: Callable) -> float:
