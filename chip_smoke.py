@@ -160,6 +160,18 @@ is non-zero:
                 value+grad time and traces/s at 64, 256 and 1,024 stations,
                 and the kernel at loc1024's 3,072 traces (bit for bit, device
                 time, bound, share).
+ 17. entry      the system's own entry points (entry_phase), the port's
+                __graft_entry__ (waveform_ot_torch.entry): entry() at JAX's
+                sizes (4 stations, nt 61, nk 96, f32) in one kernel launch
+                against the same call in float64 on the CPU (the layered f32
+                bars), its host ms; dryrun_multichip(4) and (8) on shards of
+                the card, each step against the same call on the CPU (f32),
+                one launch per shard per step; the trace-sharded Adam step at
+                loc64 width and the station-sharded layered Adam step at 12
+                stations, nk 512, unsharded, on the mesh of the visible cards
+                and on 4 shards, each against the unsharded step: ms per step,
+                launches, m1, peak memory. Every launch outside the timing
+                runs held bit for bit (held_launches).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -180,11 +192,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from waveform_ot_torch.entry import LOC, NT
 from waveform_ot_torch.utils.profiling import device_ms, events_ms, host_median_ms
 
 REPO = Path(__file__).resolve().parent
-NT = 61
-LOC = (2.0, -1.5, 12.0)
 DM = (4.0, -3.0, 2.0)           # the bench's evaluation point is LOC + DM
 N_TIMED = 20
 TOL = {torch.float64: 1e-12, torch.float32: 1e-6}
@@ -344,61 +355,42 @@ EXAMPLE_CMT_ITERS = 100
 SCALING_SIZES = (64, 256, 1024)   # stations of the scaling study's timings
 # per size: the observed fingerprints, benchmark's 2 warm-up and 30 timed calls, one more
 SCALING_CALLS = 1 + 2 + 30 + 1
+# phase 17: the system's own entry points (waveform_ot_torch.entry)
+ENTRY_DRYRUN_SHARDS = (4, 8)   # dryrun_multichip's meshes, shards of the one card
+ENTRY_STEP_KEYS = {"trace_sharded": "grad", "seq_parallel": "grad_verts", "dp_sp": "grad",
+                   "layered": "grad"}
+# Adam's first step moves each coordinate by about lr: card and CPU (f32 both)
+# part by rounding only, unless a gradient component is near 0, which none of
+# these is (the smallest is ~5% of the largest)
+ENTRY_M1_RTOL = 1e-5
 
 
 def build_loc64_problem(nr: int, dtype, device):
-    """The bench's loc/CMT problem (``__graft_entry__._build_problem``) in
-    the port: nr stations on a 60 km circle, source at LOC, strike/dip/rake
-    30/60/45 with M0 5e6, noise 0.002*max|s| from numpy default_rng(0),
-    79x61 grids, lambda 0.04, W2. Returns (loc, cfg, prob)."""
-    from waveform_ot_torch.inversion import TraceConfig, build_loc_cmt_problem
-    from waveform_ot_torch.models import (
-        StationSet, moment_tensor_from_sdr, synthetic_seismograms,
-    )
+    """The bench's loc/CMT problem, ``waveform_ot_torch.entry._build_problem``
+    (``__graft_entry__._build_problem``): nr stations on a 60 km circle,
+    source at LOC, strike/dip/rake 30/60/45 with M0 5e6, noise 0.002*max|s|
+    from numpy default_rng(0), 79x61 grids, lambda 0.04, W2. Returns (loc,
+    cfg, prob)."""
+    from waveform_ot_torch.entry import _build_problem
 
-    arr = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    ang = np.linspace(0, 2 * np.pi, nr, endpoint=False)
-    stations = StationSet(x=arr(60.0 * np.cos(ang)), y=arr(60.0 * np.sin(ang)))
-    loc = arr(LOC)
-    mxyz = moment_tensor_from_sdr(30.0, 60.0, 45.0, m0=5.0e6,
-                                  device=device).to(dtype)
-    t, s = synthetic_seismograms(loc[0], loc[1], loc[2], mxyz, stations,
-                                 nt=NT, dt=1.0)
-    rng = np.random.default_rng(0)
-    obs = s + 0.002 * float(s.abs().max()) * arr(rng.standard_normal(tuple(s.shape)))
-    cfg = TraceConfig(nu=79, ntg=NT, lambdav=0.04, q=None, p=2)
-    return loc, cfg, build_loc_cmt_problem(t, obs, stations, cfg, mxyz_fixed=mxyz)
+    return _build_problem(nr, dtype, device)
 
 
 def build_layered_problem(dtype, device, nr: int = NR_STUDY):
-    """The bench's Figs 9-11 problem (``bench._build_layered_problem``) in the
-    port: the six-layer Fukuoka model, nr stations on a 60 km circle,
-    nt 61, dt 1, nk 512, kmax 2.0, source at LOC with strike/dip/rake
-    30/60/45 and M0 5e6, observed data from the layered forward plus
-    0.002*max|s| noise from numpy default_rng(0), 79x61 grids, lambda 0.04,
-    W2. Returns (loc, cfg, prob, forward, stages)."""
-    from waveform_ot_torch.inversion import TraceConfig, build_loc_cmt_problem
-    from waveform_ot_torch.models import (
-        StationSet, fukuoka_model, make_layered_forward, make_layered_stages,
-        moment_tensor_from_sdr,
-    )
+    """The bench's Figs 9-11 problem (``bench._build_layered_problem``),
+    ``waveform_ot_torch.entry._build_layered_problem`` at the bench's nk 512:
+    the six-layer Fukuoka model, nr stations on a 60 km circle, nt 61, dt 1,
+    nk 512, kmax 2.0, source at LOC with strike/dip/rake 30/60/45 and M0
+    5e6, observed data from the layered forward plus 0.002*max|s| noise from
+    numpy default_rng(0), 79x61 grids, lambda 0.04, W2. Returns (loc, cfg,
+    prob, forward, stages)."""
+    from waveform_ot_torch.entry import _build_layered_problem
+    from waveform_ot_torch.models import fukuoka_model, make_layered_stages
 
-    arr = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    ang = np.linspace(0, 2 * np.pi, nr, endpoint=False)
-    stations = StationSet(x=arr(60.0 * np.cos(ang)), y=arr(60.0 * np.sin(ang)))
-    mxyz = moment_tensor_from_sdr(30.0, 60.0, 45.0, m0=5.0e6, device=device).to(dtype)
-    kw = dict(model=fukuoka_model(device=device), nt=NT, dt=1.0, nk=LAYERED_NK,
-              kmax=LAYERED_KMAX)
-    forward = make_layered_forward(stations, **kw)
-    loc = arr(LOC)
-    with torch.no_grad():
-        s = forward(loc[0], loc[1], loc[2], mxyz)
-    rng = np.random.default_rng(0)
-    obs = s + 0.002 * float(s.abs().max()) * arr(rng.standard_normal(tuple(s.shape)))
-    cfg = TraceConfig(nu=79, ntg=NT, lambdav=0.04, q=None, p=2)
-    prob = build_loc_cmt_problem(torch.arange(NT, dtype=dtype, device=device), obs,
-                                 stations, cfg, mxyz_fixed=mxyz)
-    return loc, cfg, prob, forward, make_layered_stages(**kw)
+    model = fukuoka_model(device=device)
+    kw = dict(nk=LAYERED_NK, kmax=LAYERED_KMAX)
+    return (*_build_layered_problem(nr, model=model, dtype=dtype, device=device, **kw),
+            make_layered_stages(model=model, nt=NT, dt=1.0, **kw))
 
 
 def scan_axes(dtype, device):
@@ -1623,6 +1615,33 @@ def _vg_dev(got, ref) -> tuple[float, float]:
     return abs(got[0].item() - ref[0].item()) / abs(ref[0].item()), _rel(got[1], ref[1])
 
 
+def vg_check(value_tol, grad_tol):
+    """check(got, ref) of two (value, gradient) pairs: raises unless the
+    value is within ``value_tol`` relative and the gradient within
+    ``grad_tol`` of max |g|; returns what it found."""
+    def check(got, ref):
+        dv, dg = _vg_dev(got, ref)
+        if not (dv <= value_tol and dg <= grad_tol):
+            raise AssertionError(f"value {dv:.3e} (bound {value_tol:g}), gradient {dg:.3e} "
+                                 f"(bound {grad_tol:g})")
+        return f"value rel {dv:.3e} (bound {value_tol:g}), gradient {dg:.3e} of max|g| " \
+               f"(bound {grad_tol:g})"
+    return check
+
+
+def layered_check_f32(got, ref):
+    """The layered f32 bars between two (value, gradient) pairs: value
+    LAYERED_VALUE_RTOL_F32 relative, gradient cosine > GRAD_COS_F32, norm
+    ratio in (0.5, 2)."""
+    dv = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
+    g, r = got[1].detach().double().cpu(), ref[1].detach().double().cpu()
+    cos, ratio = (g @ r / (g.norm() * r.norm())).item(), (g.norm() / r.norm()).item()
+    if not (dv <= LAYERED_VALUE_RTOL_F32 and cos > GRAD_COS_F32 and 0.5 < ratio < 2.0):
+        raise AssertionError(f"layered f32: value {dv:.3e}, cosine {cos}, ratio {ratio}")
+    return (f"value rel {dv:.3e} (bound {LAYERED_VALUE_RTOL_F32:g}), gradient cosine "
+            f"{cos:.9f} (bound > {GRAD_COS_F32}), norm ratio {ratio:.9f} (bound (0.5, 2))")
+
+
 def parallel_phase(dev, card: str) -> tuple[dict, dict]:
     """Phase 15: the parallel layer (waveform_ot_torch.parallel and the two
     sharded inversion entry points) at the full width of the problems above,
@@ -1675,16 +1694,6 @@ def parallel_phase(dev, card: str) -> tuple[dict, dict]:
     meshes_2d = {"mesh1": par.make_mesh_2d(1, ncards),
                  f"mesh{PAR_SHARDS}": par.make_mesh_2d(2, PAR_SHARDS // 2, device=dev)}
     cases = []   # (name, unsharded call, {mesh: (sharded call, shards)}, check(got, ref))
-
-    def vg_check(value_tol, grad_tol):
-        def check(got, ref):
-            dv, dg = _vg_dev(got, ref)
-            if not (dv <= value_tol and dg <= grad_tol):
-                raise AssertionError(f"value {dv:.3e} (bound {value_tol:g}), gradient {dg:.3e} "
-                                     f"(bound {grad_tol:g})")
-            return f"value rel {dv:.3e} (bound {value_tol:g}), gradient {dg:.3e} of max|g| " \
-                   f"(bound {grad_tol:g})"
-        return check
 
     # a. trace-sharded loc64
     for dt, tols in ((f32, (VALUE_RTOL_F32, GRAD_TOL_F32)),
@@ -1782,15 +1791,6 @@ def parallel_phase(dev, card: str) -> tuple[dict, dict]:
                   vg_check(PAR_VALUE_RTOL_F64, PAR_GRAD_TOL_F64)))
 
     # f. station-sharded layered, 12 stations
-    def layered_check_f32(got, ref):
-        dv = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
-        g, r = got[1].double(), ref[1].double()
-        cos, ratio = (g @ r / (g.norm() * r.norm())).item(), (g.norm() / r.norm()).item()
-        if not (dv <= LAYERED_VALUE_RTOL_F32 and cos > GRAD_COS_F32 and 0.5 < ratio < 2.0):
-            raise AssertionError(f"layered f32: value {dv:.3e}, cosine {cos}, ratio {ratio}")
-        return (f"value rel {dv:.3e} (bound {LAYERED_VALUE_RTOL_F32:g}), gradient cosine "
-                f"{cos:.9f} (bound > {GRAD_COS_F32}), norm ratio {ratio:.9f} (bound (0.5, 2))")
-
     for dt, check in ((f32, layered_check_f32),
                       (f64, vg_check(PAR_LAYERED_TOL_F64, PAR_LAYERED_TOL_F64))):
         lloc, lcfg, lprob, lfwd, _ = build_layered_problem(dt, dev, nr=PAR_NR_LAYERED)
@@ -2115,6 +2115,149 @@ def examples_phase(dev, card: str, variant) -> tuple[dict, dict, list]:
     return launches, per_call, [row]
 
 
+def entry_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 17: the system's own entry points (waveform_ot_torch.entry,
+    the port's __graft_entry__) on the card:
+
+      a. entry() at JAX's sizes (4 stations, nt 61, nk 96, f32): value+grad
+         in exactly one kernel launch, against entry(device="cpu",
+         dtype=float64) at the layered f32 bars (value 1e-3, gradient cosine
+         > 0.97, norm ratio in (0.5, 2)); host ms, median of 20;
+      b. dryrun_multichip(4) and dryrun_multichip(8) on shards of the card:
+         every step finite (the function checks), each step's value and
+         gradient against dryrun_multichip(n, device="cpu") (f32 both) at the
+         f32 bars (far field: value 1e-4, gradient 1e-3 of max |g|; layered:
+         as in a), the Adam steps' m1 within ENTRY_M1_RTOL, one kernel launch
+         per shard per step (asserted);
+      c. the two Adam steps at full width, unsharded, on the mesh of the
+         visible cards ("mesh1") and on PAR_SHARDS shards of ``dev``: the
+         trace-sharded far-field step at loc64 (64 stations, 192 traces,
+         79x61, f32) and the station-sharded layered step at the bench's
+         width with 12 stations (PAR_NR_LAYERED; nt 61, nk 512, f32), each
+         against its unsharded step at the f32 bars, one launch per shard
+         (asserted), peak device memory; host ms per step, median of 20.
+
+    Every kernel launch outside the timing runs is held bit for bit against
+    the plain field (held_launches). Returns the launches of each counted
+    run and the launches per call."""
+    from waveform_ot_torch import entry as E
+    from waveform_ot_torch import parallel as par
+    from waveform_ot_torch.models import make_layered_forward
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    chk = PhaseChecks("entry", card)
+    launches, per_call = {}, {}
+
+    far_check = vg_check(VALUE_RTOL_F32, GRAD_TOL_F32)
+    pair = lambda d, key: (torch.tensor(d["value"]), d[key])   # a dryrun step's (value, grad)
+
+    def m1_check(got, ref):
+        dm = _rel(got, ref)
+        if not dm <= ENTRY_M1_RTOL:
+            raise AssertionError(f"m1 {dm:.3e} (bound {ENTRY_M1_RTOL:g})")
+        return f"m1 {dm:.3e} of max|m| (bound {ENTRY_M1_RTOL:g})"
+
+    # c's cases: {label: (misfit, shards)} and the start of each
+    loc, cfg, prob = E._build_problem(64, f32, dev)
+    lloc, lcfg, lprob, _ = E._build_layered_problem(PAR_NR_LAYERED, nk=LAYERED_NK,
+                                                    kmax=LAYERED_KMAX, dtype=f32, device=dev)
+    dyn = make_layered_forward(nt=NT, dt=1.0, nk=LAYERED_NK, kmax=LAYERED_KMAX)
+    meshes = {"mesh1": par.make_mesh(), f"mesh{PAR_SHARDS}": par.make_mesh(PAR_SHARDS, device=dev)}
+
+    def variants(p, c, fwd=None):
+        out = {"unsharded": (E.loc_misfit(p, c, forward=fwd), 1)}
+        out.update({k: (E.loc_misfit(par.shard_leading_axis(p, mesh), c, mesh, forward=fwd),
+                        mesh.size) for k, mesh in meshes.items()})
+        return out
+
+    adam_cases = {
+        "adam_loc64": (loc + 3.0, variants(prob, cfg), far_check),
+        "adam_layered12": (lloc + torch.tensor(E.LAYERED_START, dtype=f32, device=dev),
+                           variants(lprob, lcfg, dyn), layered_check_f32)}
+
+    with held_launches("entry") as held:
+        # a. entry()
+        fn, (m0, eprob) = E.entry()
+        (v, g), n = chk.counted(lambda: fn(m0, eprob), want=1, what="entry()")
+        launches["entry"] = per_call["entry"] = n
+        cfn, (cm0, cprob) = E.entry(device="cpu", dtype=torch.float64)
+        cv, cg = cfn(cm0, cprob)
+        print(f"[entry] entry() f32 on the card: value {v.item()!r} grad {g.tolist()}, kernel "
+              f"launches {n}; f64 on the cpu: value {cv.item()!r} grad {cg.tolist()}; "
+              f"{layered_check_f32((v, g), (cv, cg))}")
+
+        # b. dryrun_multichip on shards of the card against the CPU
+        for n_dev in ENTRY_DRYRUN_SHARDS:
+            print(f"[entry] dryrun_multichip({n_dev}) on {dev}:")
+            got, n = chk.counted(lambda n_dev=n_dev: E.dryrun_multichip(n_dev),
+                                 what=f"dryrun_multichip({n_dev})")
+            print(f"[entry] dryrun_multichip({n_dev}) on the cpu (f32):")
+            ref = E.dryrun_multichip(n_dev, device="cpu")
+            steps = [k for k in ENTRY_STEP_KEYS if k in got]
+            # the steps' evaluations and the observed fingerprints of steps a and d's problems
+            if n != sum(got[k]["launches"] for k in steps) + 2 or len(steps) != 4:
+                raise AssertionError(f"dryrun_multichip({n_dev}): {n} launches, steps {steps}")
+            for k in steps:
+                a, r, gk = got[k], ref[k], ENTRY_STEP_KEYS[k]
+                check = layered_check_f32 if k == "layered" else far_check
+                what = check(pair(a, gk), pair(r, gk))
+                if "m1" in a:
+                    what += "; " + m1_check(a["m1"], r["m1"])
+                launches[f"entry_dryrun{n_dev}_{k}"] = a["launches"]
+                per_call[f"entry_dryrun{n_dev}_{k}"] = a["launches"]
+                print(f"[entry] dryrun_multichip({n_dev}) {k}: card vs cpu {what}; kernel "
+                      f"launches {a['launches']} (one per shard)")
+                if a["launches"] != n_dev:
+                    raise AssertionError(f"dryrun_multichip({n_dev}) {k}: {a['launches']} "
+                                         f"launches on {n_dev} shards")
+
+        # c. the Adam steps at full width
+        peaks, m1s = {}, {}
+        for name, (start, by, check) in adam_cases.items():
+            first = {}
+            for label, (misfit, shards) in by.items():
+                m = start.clone().requires_grad_(True)
+                opt = E.adam(m)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                (v, g), n = chk.counted(lambda: E.adam_step(misfit, m, opt), want=shards,
+                                        what=f"{name} {label}")
+                peaks[name, label] = torch.cuda.max_memory_allocated() / 1e9
+                first[label] = (v, g, m.detach().clone())
+                launches[f"entry_{name}_{label}"] = per_call[f"entry_{name}_{label}"] = n
+                if not (np.isfinite(v.item()) and bool(torch.isfinite(g).all())
+                        and bool(torch.isfinite(m).all())):
+                    raise AssertionError(f"{name} {label}: non-finite step")
+                if label != "unsharded":
+                    rv, rg, rm = first["unsharded"]
+                    what = check((v, g), (rv, rg)) + "; " + m1_check(m, rm)
+                    m1s[name, label] = _rel(m, rm)
+                    print(f"[entry] {name} {label} ({shards} shards) vs unsharded: {what}; "
+                          f"kernel launches {n}")
+            print(f"[entry] {name}: m0 {start.tolist()} -> m1 {first['unsharded'][2].tolist()} "
+                  f"(unsharded), value {first['unsharded'][0].item()!r}")
+            del first
+            torch.cuda.empty_cache()
+    chk.check_held(held)
+    checked_s = time.perf_counter() - t_phase
+
+    # timing runs
+    chk.timed("entry() value+grad", lambda: fn(m0, eprob), 1, N_TIMED)
+    for name, (start, by, _) in adam_cases.items():
+        for label, (misfit, shards) in by.items():
+            m = start.clone().requires_grad_(True)
+            opt = E.adam(m)
+            ms = chk.timed(f"{name} {label}", lambda: E.adam_step(misfit, m, opt), shards, N_TIMED)
+            print(f"[entry] {name} {label}: {ms:.4f} ms per Adam step (host clock, synchronized, "
+                  f"median of {N_TIMED}), kernel launches per step {shards}, peak device memory "
+                  f"{peaks[name, label]:.3f} GB, m1 vs unsharded "
+                  f"{m1s.get((name, label), 0.0):.3e} of max|m| {card}")
+    print(f"[entry] phase {time.perf_counter() - t_phase:.1f} s ({checked_s:.1f} s before the "
+          f"timing runs)")
+    return launches, per_call
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2392,6 +2535,10 @@ def main() -> int:
     launches.update(examples)
     rows.extend(examples_rows)
 
+    # 17. the system's own entry points: entry() and dryrun_multichip's steps
+    entries, entries_per_call = entry_phase(dev, card)
+    launches.update(entries)
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -2402,7 +2549,7 @@ def main() -> int:
                               "scan": launches["scan"], "layered": launches["layered"],
                               "layered_scan": launches["layered_scan"], **per_eval,
                               **toolbox_per_call, **drivers_per_call, **native_per_call,
-                              **parallel_per_call, **examples_per_call},
+                              **parallel_per_call, **examples_per_call, **entries_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -158,21 +158,25 @@ def test_error_taxonomy_mirrors_jax():
 PORT_SCRIPTS = ["chip_smoke.py"] + sorted(
     f"examples/{name}" for name in os.listdir(os.path.join(REPO, "examples"))
     if name.startswith("torch_") and name.endswith(".py"))
-IMPORTED = ["waveform_ot_torch", *PORT_SCRIPTS]
+IMPORTED = ["waveform_ot_torch", "waveform_ot_torch.entry", *PORT_SCRIPTS]
 
 
 def _import_check(module: str) -> str:
-    """Python code that imports ``module`` (the package and its convert, or
-    a script by path, without running its main) and exits 1 if any jax* or
-    waveform_ot_tpu* module got loaded."""
+    """Python code that imports ``module`` (the package and its convert, a
+    module of the package, or a script by path, without running its main)
+    and exits 1 if any jax*, optax*, waveform_ot_tpu* or __graft_entry__
+    module got loaded."""
     if module.endswith(".py"):
         load = ("import importlib.util, sys; spec = importlib.util.spec_from_file_location("
                 f"'under_test', {module!r}); "
                 "spec.loader.exec_module(importlib.util.module_from_spec(spec)); ")
-    else:
+    elif module == "waveform_ot_torch":
         load = "import sys, waveform_ot_torch, waveform_ot_torch.convert; "
-    return (load + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m.startswith('waveform_ot_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    else:
+        load = f"import sys, {module}; "
+    return (load + "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', "
+            "'__graft_entry__') or m.startswith('waveform_ot_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
 
 
 @pytest.fixture(scope="module")
@@ -196,8 +200,9 @@ def import_runs():
 
 @pytest.mark.parametrize("module", IMPORTED)
 def test_import_does_not_load_jax(import_runs, module):
-    """Importing the package, chip_smoke.py or a port example script loads
-    no jax* and no waveform_ot_tpu* module."""
+    """Importing the package, its entry module, chip_smoke.py or a port
+    example script loads no jax*, optax*, waveform_ot_tpu* or
+    __graft_entry__ module."""
     rc, out = import_runs[module]
     assert rc == 0, out
 

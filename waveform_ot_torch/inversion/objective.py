@@ -38,13 +38,16 @@ class RickerProblem(NamedTuple):
 
 
 def make_ricker_problem(targets: Targets, grid6, trange=(-2.0, 7.0),
-                        alpha: float = 0.5, lambdav: float = 0.03):
-    """(RickerProblem, TraceConfig) on the device and dtype of ``targets``:
-    45-degree window, arctan transform, exp(-|d|/lambda) density, W2."""
+                        alpha: float = 0.5, theta: float = 45.0,
+                        lambdav: float = 0.03, p: int = 2, q: int | None = None,
+                        transform: bool = True):
+    """(RickerProblem, TraceConfig) on the device and dtype of ``targets``: a
+    window at ``theta`` degrees, the arctan transform where ``transform``,
+    the density exp(-|d|/lambda) (q None) or its q-power form, W_p."""
     x = targets.t.x
-    win, spec = grid6_to_window(grid6, dtype=x.dtype, device=x.device)
-    cfg = TraceConfig(nu=spec.nu, ntg=spec.ntg, lambdav=lambdav, q=None, p=2,
-                      transform=True)
+    win, spec = grid6_to_window(grid6, theta=theta, dtype=x.dtype, device=x.device)
+    cfg = TraceConfig(nu=spec.nu, ntg=spec.ntg, lambdav=lambdav, q=q, p=p,
+                      transform=transform)
     prob = RickerProblem(targets=targets, window=win, trange=tuple(trange),
                          alpha=alpha)
     return prob, cfg

@@ -146,11 +146,14 @@ def calc_wasser_waveform(t, w, win: Window, targets: Targets,
     return (wt + wu) / 2.0, (drt + dru) / 2.0, dgt * s / 2.0
 
 
-def grid6_to_window(grid6, dtype=torch.float64, device="cuda"):
-    """Reference 6-tuple (t0, t1, u0, u1, Nu, Nt) -> (45-degree Window on
-    ``device``, FingerprintSpec)."""
+def grid6_to_window(grid6, theta: float = 45.0, tantheta: float | None = None,
+                    dtype=torch.float64, device="cuda"):
+    """Reference 6-tuple (t0, t1, u0, u1, Nu, Nt) -> (Window on ``device``,
+    FingerprintSpec); the window's angle is ``theta`` degrees, or its tangent
+    ``tantheta`` where given."""
     t0, t1, u0, u1, nu, ntg = grid6
-    win = make_window(t0, t1, u0, u1, theta=45.0, dtype=dtype, device=device)
+    win = make_window(t0, t1, u0, u1, theta=theta, tantheta=tantheta, dtype=dtype,
+                      device=device)
     return win, FingerprintSpec(nu=int(nu), ntg=int(ntg))
 
 

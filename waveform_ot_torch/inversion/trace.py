@@ -10,7 +10,7 @@ copies.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+from typing import Any, Callable, List
 
 import numpy as np
 import torch
@@ -26,21 +26,24 @@ def _np_copy(a) -> np.ndarray:
 class InversionTrace:
     """Host-side record of an optimization run.
 
-    models[i], misfits[i] (and grads[i]) record every objective evaluation;
-    iterates[j] records accepted optimizer iterations (the reference's
-    ``recordresult`` callback).
+    models[i], misfits[i] (and grads[i], and aux[i] where given) record every
+    objective evaluation; iterates[j] records accepted optimizer iterations
+    (the reference's ``recordresult`` callback).
     """
 
     models: List[np.ndarray] = dataclasses.field(default_factory=list)
     misfits: List[float] = dataclasses.field(default_factory=list)
     grads: List[np.ndarray] = dataclasses.field(default_factory=list)
     iterates: List[np.ndarray] = dataclasses.field(default_factory=list)
+    aux: List[Any] = dataclasses.field(default_factory=list)
 
-    def record_eval(self, m, misfit, grad=None) -> None:
+    def record_eval(self, m, misfit, grad=None, aux=None) -> None:
         self.models.append(_np_copy(m))
         self.misfits.append(float(misfit))
         if grad is not None:
             self.grads.append(_np_copy(grad))
+        if aux is not None:
+            self.aux.append(aux)
 
     def record_iterate(self, m) -> None:
         self.iterates.append(_np_copy(m))

@@ -223,14 +223,16 @@ def clp_filter(om, om1, om2):
     return torch.where(om <= om1, 1.0, torch.where(om >= om2, 0.0, ramp))
 
 
-def stf_spectrum(om_real, om_c, stf):
+def stf_spectrum(om_real, om_c, stf, dtype=torch.float64):
     """Moment time-function spectrum at the complex synthesis frequencies.
 
-    ("gauss", fc): M(t) = exp(-(pi fc)^2 t^2); ("clp_step", f1, f2): a step
-    band-limited by clp_filter(om, 2 pi f1, 2 pi f2)."""
+    ("gauss", fc): M(t) = exp(-(pi fc)^2 t^2), complex128 for ``dtype``
+    float64 and complex64 otherwise; ("clp_step", f1, f2): a step
+    band-limited by clp_filter(om, 2 pi f1, 2 pi f2), in om_c's dtype."""
     if stf[0] == "gauss":
         a = (math.pi * stf[1]) ** 2
-        return math.sqrt(math.pi / a) * torch.exp(-(om_c * om_c) / (4.0 * a))
+        s = math.sqrt(math.pi / a) * torch.exp(-(om_c * om_c) / (4.0 * a))
+        return s.to(torch.complex128 if dtype == torch.float64 else torch.complex64)
     if stf[0] == "clp_step":
         band = clp_filter(om_real, 2.0 * math.pi * stf[1], 2.0 * math.pi * stf[2])
         return band * (1j / om_c)
@@ -306,7 +308,7 @@ def wholespace_seismograms(x, y, z, mxyz, stations: StationSet, nt: int = 61,
     third = d_hessian_sum(vs) - d_hessian_sum(vp)
     kb2 = ((om_c / vs) ** 2)[:, None]
     spec = -(kb2 * mdg + third) / (4.0 * math.pi * rho * (om_c * om_c)[:, None])
-    s = stf_spectrum(om, om_c, stf) * torch.exp(1j * om_c * (-t0))
+    s = stf_spectrum(om, om_c, stf, dtype) * torch.exp(1j * om_c * (-t0))
     u = _synthesize(spec.movedim(-1, 1) * s, nt, dt, alpha_damp, nfft)
     u = u * torch.tensor([1.0, 1.0, -1.0], dtype=dtype, device=device)[:, None]
     return t0 + dt * torch.arange(nt, dtype=dtype, device=device), u
@@ -826,7 +828,7 @@ def _finish_synthesis(spec, plan: _SynthPlan, nt, dt, stf, alpha_damp, t0):
     om = torch.as_tensor(plan.om_np, dtype=dtype, device=spec.device)
     spec = torch.cat([spec, spec.new_zeros(spec.shape[:-1] + (om.shape[0] - spec.shape[-1],))], -1)
     om_cw = torch.complex(om, torch.full_like(om, alpha_damp))
-    s = stf_spectrum(om, om_cw, stf) * torch.exp(1j * om_cw * (-t0))
+    s = stf_spectrum(om, om_cw, stf, dtype) * torch.exp(1j * om_cw * (-t0))
     u = _synthesize(spec * s, nt, dt, alpha_damp, plan.nfft)
     return u * torch.tensor([1.0, 1.0, -1.0], dtype=dtype, device=u.device)[:, None]
 

@@ -40,13 +40,19 @@ def _time_axis(trange, n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def ricker_wavelet(tpert, amp, f, trange=(-2.0, 2.0), length: float = 4.0,
-                   dt: float = 4.0 / 128.0):
+                   dt: float = 4.0 / 128.0, noise=None):
     """Double Ricker wavelet (t, w), differentiable in the tensors
-    (tpert, amp, f), each () or (k,): t = linspace(trange) + tpert."""
+    (tpert, amp, f), each () or (k,): t = linspace(trange) + tpert. ``noise``
+    (nt,) or (k, nt), e.g. from :mod:`waveform_ot_torch.models.gp_noise`, is
+    added to the wavelet (the reference's sigma_amp/sigma_cor options applied
+    by the caller)."""
     freq = f * 25.0 * 4.0 / 128.0
     _, w = ricker(freq, length=length, dt=dt)
     wp = amp[..., None] * torch.cat([w, w], dim=-1)
-    return _time_axis(trange, wp.shape[-1], wp) + tpert[..., None], wp
+    tp = _time_axis(trange, wp.shape[-1], wp)
+    if noise is not None:
+        wp = wp + noise
+    return tp + tpert[..., None], wp
 
 
 def ricker_wavelet_noisy(generator: torch.Generator | None, tpert, amp, f,
