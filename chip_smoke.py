@@ -172,6 +172,14 @@ is non-zero:
                 and on 4 shards, each against the unsharded step: ms per step,
                 launches, m1, peak memory. Every launch outside the timing
                 runs held bit for bit (held_launches).
+ 18. bench      the port's benchmark program (bench_phase): python -m
+                waveform_ot_torch.bench, bench.py's ten stages at its
+                accelerator repeat counts, each in a process of its own; its
+                stderr echoed under [bench]; its last line held to bench.py's
+                schema and metric strings, every status "ok", every value
+                finite, f32dev (loc16 f32 on the card against f64 on the CPU)
+                within phase 3's bars, and each stage's kernel launches 1 per
+                call, 1 per batched evaluation of the two studies.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -182,7 +190,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -192,6 +202,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from waveform_ot_torch.bench import STAGES as BENCH_STAGES
+from waveform_ot_torch.bench import layered_scan_axes as scan_axes
+from waveform_ot_torch.bench import scan_nodes
 from waveform_ot_torch.entry import LOC, NT
 from waveform_ot_torch.utils.profiling import device_ms, events_ms, host_median_ms
 
@@ -359,6 +372,27 @@ SCALING_CALLS = 1 + 2 + 30 + 1
 ENTRY_DRYRUN_SHARDS = (4, 8)   # dryrun_multichip's meshes, shards of the one card
 ENTRY_STEP_KEYS = {"trace_sharded": "grad", "seq_parallel": "grad_verts", "dp_sp": "grad",
                    "layered": "grad"}
+# phase 18: the port's bench program (python -m waveform_ot_torch.bench), its
+# line's metric strings as bench.py's _emit writes them (bench.py:537-560)
+BENCH_HEADLINE = "batched W2 misfit+grad, 64 stations x 3 comps"
+BENCH_METRICS = [
+    "ricker objective 80x512 misfit+grad",
+    "batched W2 misfit+grad, 1024 stations x 3 comps",
+    "throughput at 1024x3",
+    "misfit grid scan 21x21x4 (1764 nodes), 11 stations x 3 comps",
+    "64-start repeat inversion study, on-device LBFGS",
+    "fingerprint density 800x600 grid, 625 segments (w/ deriv precompute)",
+    "layered-physics W2 misfit+grad (6-layer Fukuoka f-k), 11 stations x 3 comps "
+    "[vs own f64 CPU 1-core oracle]",
+    "LAYERED misfit grid scan 21x21x4 (1764 nodes), depth-amortized stage A "
+    "[vs own f64 CPU 1-core oracle]",
+    "LAYERED 64-start repeat study, on-device LBFGS [vs own f64 CPU 1-core oracle x ref nfev]",
+    "f32 vs f64 relative deviation (value)",
+    "f32 vs f64 relative deviation (grad, max)",
+]
+BENCH_STUDIES = {"multistart", "layered_ms"}   # 1 launch per batched evaluation; others per call
+BENCH_BUDGET_S = 600           # the bench's own budget (WOT_BENCH_BUDGET_S) in this phase
+BENCH_TIMEOUT_S = 660
 # Adam's first step moves each coordinate by about lr: card and CPU (f32 both)
 # part by rounding only, unless a gradient component is near 0, which none of
 # these is (the smallest is ~5% of the largest)
@@ -393,15 +427,6 @@ def build_layered_problem(dtype, device, nr: int = NR_STUDY):
             make_layered_stages(model=model, nt=NT, dt=1.0, **kw))
 
 
-def scan_axes(dtype, device):
-    """The bench's layered scan grid: depths linspace(4, 22, 4) (4,) and the
-    (x, y) nodes of linspace(-20, 20, 21) squared, (441, 2), x-major."""
-    xg = np.linspace(-20, 20, 21)
-    x, y = np.meshgrid(xg, xg, indexing="ij")
-    arr = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    return arr(np.linspace(4, 22, 4)), arr(np.stack([x.ravel(), y.ravel()], 1))
-
-
 def build_ricker_problem(golden: dict, dtype, device):
     """The Ricker_Figs_3_8 problem from the golden observed waveform:
     80x512 grid, arctan transform, W2, alpha 0.5. Returns (prob, cfg)."""
@@ -426,15 +451,6 @@ def study_starts(dtype, device) -> torch.Tensor:
     numpy default_rng(1)."""
     rng = np.random.default_rng(1)
     return torch.as_tensor(np.asarray(LOC) + rng.uniform(-15, 15, size=(N_STARTS, 3)),
-                           dtype=dtype, device=device)
-
-
-def scan_nodes(dtype, device) -> torch.Tensor:
-    """The bench's 21x21x4 scan nodes (x, y, z), (1764, 3), in the bench's
-    meshgrid(z, x, y, indexing="ij") order."""
-    zg, xg, yg = np.meshgrid(np.linspace(4, 22, 4), np.linspace(-20, 20, 21),
-                             np.linspace(-20, 20, 21), indexing="ij")
-    return torch.as_tensor(np.stack([xg.ravel(), yg.ravel(), zg.ravel()], 1),
                            dtype=dtype, device=device)
 
 
@@ -2258,6 +2274,76 @@ def entry_phase(dev, card: str) -> tuple[dict, dict]:
     return launches, per_call
 
 
+def bench_phase(card: str) -> tuple[dict, dict]:
+    """Phase 18: the port's benchmark program, ``python -m
+    waveform_ot_torch.bench``, run as a subprocess on the card (its ten
+    stages each in a process of its own, budget BENCH_BUDGET_S). Its stderr
+    is echoed under ``[bench]``; its last stdout line must have all ten
+    statuses "ok", every value non-null and finite, bench.py's headline and
+    eleven extra metric strings (BENCH_METRICS), f32dev's deviations within
+    phase 3's bars, and each stage's kernel launches (from its raw numbers on
+    stderr) 1 per call, 1 per batched evaluation for the two studies. Returns
+    the launches ({"bench": every stage's}) and the launches per call or
+    evaluation by stage."""
+    t_phase = time.perf_counter()
+    env = {**os.environ, "WOT_BENCH_BUDGET_S": str(BENCH_BUDGET_S)}
+    proc = subprocess.Popen([sys.executable, "-m", "waveform_ot_torch.bench"], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)   # the bench and its stage process
+        out, err = proc.communicate()
+    for line in err.splitlines():
+        print(f"[bench] {line}")
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the bench exited {proc.returncode}; its last line: "
+                             f"{lines[-1] if lines else None}")
+    print(f"[bench] {lines[-1]}")
+    line = json.loads(lines[-1])
+    status = line["stages"]
+    if status != {name: "ok" for name in BENCH_STAGES}:
+        raise AssertionError(f"bench stages {status}")
+    if line["metric"] != BENCH_HEADLINE or [r["metric"] for r in line["extra"]] != BENCH_METRICS:
+        raise AssertionError("the bench line's metric strings are not bench.py's")
+    values = [line["value"]] + [r["value"] for r in line["extra"]]
+    if not all(v is not None and np.isfinite(v) for v in values):
+        raise AssertionError(f"bench values {values}")
+    dv, dg = line["extra"][-2]["value"], line["extra"][-1]["value"]
+    print(f"[bench] f32dev on the card: value rel dev {dv:.3e} (bound {VALUE_RTOL_F32:g}), "
+          f"grad dev / max|g| {dg:.3e} (bound {GRAD_TOL_F32:g})")
+    if not (dv <= VALUE_RTOL_F32 and dg <= GRAD_TOL_F32):
+        raise AssertionError("f32dev deviates from the f64 oracle")
+
+    raw = {}
+    for entry_line in err.splitlines():
+        if entry_line.startswith("[bench stage] "):
+            name, numbers = entry_line[len("[bench stage] "):].split(" ", 1)
+            raw[name] = json.loads(numbers)
+    if sorted(raw) != sorted(BENCH_STAGES):
+        raise AssertionError(f"raw numbers of stages {sorted(raw)}")
+    per_call = {}
+    for name in BENCH_STAGES:
+        key = "launches_per_evaluation" if name in BENCH_STUDIES else "launches_per_call"
+        per_call[f"bench_{name}"] = raw[name][key]
+        if name in BENCH_STUDIES:
+            what = (f"{raw[name]['per'] * 1e3:.4f} ms per study, "
+                    f"{raw[name]['evaluations']:g} batched evaluations per study")
+        elif name == "f32dev":
+            what = f"value deviation {raw[name]['dv']:.3e}, gradient {raw[name]['dg']:.3e}"
+        else:
+            what = f"{raw[name]['per'] * 1e3:.4f} ms per call"
+        print(f"[bench] {name}: {what} (host clock, synchronized, mean after a warm call), "
+              f"{key} {raw[name][key]:g}, launches {raw[name]['launches']} {card}")
+        if raw[name][key] != 1:
+            raise AssertionError(f"bench {name}: {key} {raw[name][key]}, not 1")
+    launches = {"bench": sum(r["launches"] for r in raw.values())}
+    print(f"[bench] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, per_call
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2539,6 +2625,11 @@ def main() -> int:
     entries, entries_per_call = entry_phase(dev, card)
     launches.update(entries)
 
+    # 18. the port's bench program: bench.py's ten stages and its line
+    torch.cuda.empty_cache()
+    benched, bench_per_call = bench_phase(card)
+    launches.update(benched)
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -2549,7 +2640,8 @@ def main() -> int:
                               "scan": launches["scan"], "layered": launches["layered"],
                               "layered_scan": launches["layered_scan"], **per_eval,
                               **toolbox_per_call, **drivers_per_call, **native_per_call,
-                              **parallel_per_call, **examples_per_call, **entries_per_call},
+                              **parallel_per_call, **examples_per_call, **entries_per_call,
+                              **bench_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

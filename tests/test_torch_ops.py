@@ -158,7 +158,8 @@ def test_error_taxonomy_mirrors_jax():
 PORT_SCRIPTS = ["chip_smoke.py"] + sorted(
     f"examples/{name}" for name in os.listdir(os.path.join(REPO, "examples"))
     if name.startswith("torch_") and name.endswith(".py"))
-IMPORTED = ["waveform_ot_torch", "waveform_ot_torch.entry", *PORT_SCRIPTS]
+IMPORTED = ["waveform_ot_torch", "waveform_ot_torch.entry", "waveform_ot_torch.bench",
+            *PORT_SCRIPTS]
 
 
 def _import_check(module: str) -> str:
@@ -200,9 +201,9 @@ def import_runs():
 
 @pytest.mark.parametrize("module", IMPORTED)
 def test_import_does_not_load_jax(import_runs, module):
-    """Importing the package, its entry module, chip_smoke.py or a port
-    example script loads no jax*, optax*, waveform_ot_tpu* or
-    __graft_entry__ module."""
+    """Importing the package, its entry module, its bench module,
+    chip_smoke.py or a port example script loads no jax*, optax*,
+    waveform_ot_tpu* or __graft_entry__ module."""
     rc, out = import_runs[module]
     assert rc == 0, out
 
