@@ -180,6 +180,17 @@ is non-zero:
                 finite, f32dev (loc16 f32 on the card against f64 on the CPU)
                 within phase 3's bars, and each stage's kernel launches 1 per
                 call, 1 per batched evaluation of the two studies.
+ 19. surface    the names the port binds as the JAX package does
+                (surface_phase; tests/test_torch_surface.py holds the whole
+                public surface on the CPU): ops.wasser, the function, on the
+                800x600 RF marginals and their copy delayed 0.01 s (float64,
+                one launch for both fingerprints), W1/W2/W12 within 1e-12 of
+                the same call on the CPU; top_device_ops on loc64 f32
+                value+grad with trace_dir, its trace file left there and
+                naming the kernel, the kernel in its ranking (2 launches);
+                save_checkpoint(pytree=...)/restore_checkpoint of CUDA
+                tensors, bit for bit on their device. Every launch held bit
+                for bit (held_launches).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
@@ -393,6 +404,8 @@ BENCH_METRICS = [
 BENCH_STUDIES = {"multistart", "layered_ms"}   # 1 launch per batched evaluation; others per call
 BENCH_BUDGET_S = 600           # the bench's own budget (WOT_BENCH_BUDGET_S) in this phase
 BENCH_TIMEOUT_S = 660
+SURFACE_RTOL = 1e-12           # ops.wasser on the card vs the CPU, relative
+SURFACE_TIMED = 5
 # Adam's first step moves each coordinate by about lr: card and CPU (f32 both)
 # part by rounding only, unless a gradient component is near 0, which none of
 # these is (the smallest is ~5% of the largest)
@@ -2344,6 +2357,114 @@ def bench_phase(card: str) -> tuple[dict, dict]:
     return launches, per_call
 
 
+def surface_phase(dev, card: str) -> tuple[dict, dict]:
+    """Phase 19: the parts of the JAX package's public surface the port
+    binds as the JAX package does (tests/test_torch_surface.py holds the
+    whole surface on the CPU), on the card:
+
+      a. ``waveform_ot_torch.ops.wasser``, the function ops/__init__ binds,
+         on the time and amplitude marginals of phase 12's 800x600 RF
+         fingerprint and its copy delayed RF_SHIFT s (float64, both
+         fingerprints in one kernel launch): W1, W2 and W12 each within
+         SURFACE_RTOL of the same call on those marginals on the CPU; host ms
+         per W12 call;
+      b. ``utils.top_device_ops`` on loc64 f32 value+grad with ``trace_dir``:
+         its trace file is left there, non-empty and naming the kernel, and
+         the kernel is in the ranking (a warm-up call and a profiled one: 2
+         launches);
+      c. ``utils.save_checkpoint(path, pytree=...)`` of CUDA tensors and
+         ``restore_checkpoint``: every tensor back bit for bit, with its dtype
+         and device, with and without a template.
+
+    Every kernel launch is held bit for bit against the plain field
+    (held_launches). Returns the path's launches and the launches per call."""
+    import tempfile
+
+    from waveform_ot_torch import ops, utils
+    from waveform_ot_torch.inversion import InvOptions, loc_cmt_value_and_grad
+    from waveform_ot_torch.ops import FingerprintSpec, fingerprint_density, make_window
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    chk = PhaseChecks("surface", card)
+    launches, per_call = {}, {}
+    cpu = torch.device("cpu")
+
+    t0, t1, u0, u1, nu, ntg = rf_grid6()
+    win = make_window(t0, t1, u0, u1, dtype=f64, device=dev)
+    trf = torch.as_tensor(rf_waveform()[0], dtype=f64, device=dev)
+    waves = torch.stack([torch.as_tensor(rf_waveform(s)[1], dtype=f64, device=dev)
+                         for s in (RF_SHIFT, 0.0)])
+    _, cfg64, prob64 = build_loc64_problem(64, f32, dev)
+    m64 = torch.tensor(LOC, dtype=f32, device=dev) + torch.tensor(DM, dtype=f32, device=dev)
+    opts = InvOptions(loc=True, cmt=False, mistype="OT")
+
+    with held_launches("surface") as held:
+        # a. ops.wasser on the RF marginals, card against the CPU
+        with torch.no_grad():
+            (pdf, (tg, ug)), n = chk.counted(
+                lambda: fingerprint_density(trf, waves, win, FingerprintSpec(nu=nu, ntg=ntg),
+                                            lambdav=RF_LAMBDA), want=1,
+                what=f"the two {nu}x{ntg} RF fingerprints")
+        launches["surface_fingerprints"] = per_call["surface_fingerprints"] = n
+        margs = {"time": [ops.make_density_1d(pdf[i].sum(0), tg[i]) for i in (0, 1)],
+                 "amplitude": [ops.make_density_1d(pdf[i].sum(1), ug[i]) for i in (0, 1)]}
+        for axis, (src, tgt) in margs.items():
+            on_cpu = [ops.Density1D(*(a.cpu() for a in d)) for d in (src, tgt)]
+            for distfunc in ("W1", "W2", "W12"):
+                got = [float(w) for w in ops.wasser(src, tgt, distfunc)]
+                ref = [float(w) for w in ops.wasser(*on_cpu, distfunc)]
+                chk.hold(f"ops.wasser {distfunc} on the {axis} marginals ({len(got)} values "
+                         f"{got}), card vs cpu, relative",
+                         max(abs(a - b) / abs(b) for a, b in zip(got, ref)), SURFACE_RTOL)
+
+        # b. top_device_ops with a trace directory
+        call = lambda: loc_cmt_value_and_grad(m64, prob64, opts, cfg64)
+        with tempfile.TemporaryDirectory() as tmp:
+            ranked, n = chk.counted(lambda: utils.top_device_ops(call, top=ALL_OPS, trace_dir=tmp),
+                                    want=2, what="top_device_ops(loc64 value+grad, trace_dir)")
+            files = list(Path(tmp).iterdir())
+            if len(files) != 1 or not files[0].stat().st_size:
+                raise AssertionError(f"top_device_ops left {[f.name for f in files]} in its "
+                                     f"trace_dir, not one non-empty trace")
+            size = files[0].stat().st_size
+            in_trace = KERNEL_NAME in files[0].read_text()
+        launches["surface_top_device_ops"] = per_call["surface_top_device_ops"] = n
+        rank = [i for i, (_, name) in enumerate(ranked) if KERNEL_NAME in name]
+        print(f"[surface] top_device_ops(loc64 f32 value+grad, trace_dir): trace {files[0].name} "
+              f"{size} bytes, names the kernel: {in_trace}; the kernel ranks "
+              f"{rank[0] + 1 if rank else None} of {len(ranked)} device ops (the held check's "
+              f"plain field among them); kernel launches {n}")
+        if not (rank and in_trace):
+            raise AssertionError("the distance-field kernel is missing from top_device_ops' "
+                                 "ranking or its trace file")
+
+        # c. a checkpoint of CUDA tensors
+        (v, g), n = chk.counted(call, want=1, what="the loc64 value+grad it saves")
+        launches["surface_checkpoint"] = per_call["surface_checkpoint"] = n
+        tree = {"m": m64, "value_and_grad": (v, g), "marginal": margs["time"][0].pdf,
+                "support": [margs["time"][0].x], "step": 19}
+        with tempfile.TemporaryDirectory() as tmp:
+            utils.save_checkpoint(tmp, pytree=tree, step=19)
+            back = {"plain": utils.restore_checkpoint(tmp, step=19),
+                    "template": utils.restore_checkpoint(tmp, template=tree, step=19)}
+        for how, out in back.items():
+            leaves = lambda t: [t["m"], *t["value_and_grad"], t["marginal"], *t["support"]]
+            same = [a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(leaves(out), leaves(tree))]
+            print(f"[surface] save_checkpoint(pytree=...) / restore_checkpoint ({how}): "
+                  f"{len(same)} CUDA tensors back bit for bit on their device: {all(same)}")
+            if not all(same) or out["step"] != 19:
+                raise AssertionError(f"the checkpoint round trip ({how}) changed {same}")
+    chk.check_held(held)
+    src, tgt = margs["time"]
+    ms = host_median_ms(lambda: ops.wasser(src, tgt, "W12"), n=SURFACE_TIMED, warm=1)
+    print(f"[timing] surface ops.wasser W12 on the {ntg}-point time marginals: {ms:.4f} ms/call "
+          f"(host clock, synchronized, median of {SURFACE_TIMED}) {card}")
+    print(f"[surface] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, per_call
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2630,6 +2751,11 @@ def main() -> int:
     benched, bench_per_call = bench_phase(card)
     launches.update(benched)
 
+    # 19. the JAX package's surface as the port binds it: ops.wasser,
+    # top_device_ops(trace_dir), save_checkpoint(pytree)
+    surface, surface_per_call = surface_phase(dev, card)
+    launches.update(surface)
+
     head = rows[0]                        # loc64 float32, the headline
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
@@ -2641,7 +2767,7 @@ def main() -> int:
                               "layered_scan": launches["layered_scan"], **per_eval,
                               **toolbox_per_call, **drivers_per_call, **native_per_call,
                               **parallel_per_call, **examples_per_call, **entries_per_call,
-                              **bench_per_call},
+                              **bench_per_call, **surface_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

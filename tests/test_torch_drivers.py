@@ -24,6 +24,7 @@ which keeps the module's JAX compiles to one value and one Jacobian program.
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -517,6 +518,34 @@ def test_loc_cmt_helpers_match_jax():
     for a, b in zip(jax.tree_util.tree_leaves(res[0]), jax.tree_util.tree_leaves(res[1])):
         np.testing.assert_allclose(np.asarray(a, float), np.asarray(b, float), rtol=0,
                                    atol=1e-10)
+
+
+def test_build_mxyz_matches_jax():
+    """BuildMxyz, the reference's alias of buildMxyzfromupper: the symmetric
+    tensor of the six upper entries, exactly as JAX's."""
+    m6 = np.random.default_rng(6).normal(size=6)
+    got, ref = tlc.BuildMxyz(m6), jlc.BuildMxyz(m6)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, got.T)
+
+
+@pytest.mark.parametrize("success", [True, False])
+def test_printanalysis_prints_as_jax(success, capsys, monkeypatch):
+    """printanalysis (without the Moment_LS fit) on a fixed optimizer result
+    and history prints what JAX's prints, character for character; a failed
+    optimisation prints its one line."""
+    rng = np.random.default_rng(9)
+    mtrue = np.append(np.array(SRC), M6)
+    mstart = np.append(np.array(X0), rng.normal(size=6))
+    final = tlc.buildMxyzfromupper(M6 + 0.01 * rng.normal(size=6))
+    opt = types.SimpleNamespace(success=success, fun=0.125)
+    out = []
+    for mod in (tlc, jlc):
+        monkeypatch.setattr(mod, "opt_history", [[0.125, mtrue, None, final]])
+        mod.printanalysis(np.append(M_LOC, M6), opt, mtrue, mstart, 3.5, 0.0625, None, None)
+        out.append(capsys.readouterr().out)
+    assert out[0] == out[1]
+    assert ("Optimisation Failed" in out[0]) != success
 
 
 @pytest.mark.parametrize("call", ["prop8seis", "rickerwavelet", "buildFingerprintwindows"])

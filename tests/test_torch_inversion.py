@@ -373,6 +373,22 @@ def ricker(golden):
     return gd, prob, cfg, tprob, tcfg
 
 
+def test_build_fingerprint_matches_jax(ricker):
+    """build_fingerprint (transform, then the fingerprint density) of the
+    golden observed waveform on the problem's window at 80x512: the density
+    and its two grid axes within 1e-12 of JAX's, relative to their largest
+    entry."""
+    gd, prob, cfg, tprob, tcfg = ricker
+    tw = lambda k: torch.tensor(gd[k], dtype=torch.float64)
+    pdf, (tg, ug) = ti.build_fingerprint(tw("tobs"), tw("wobs")[None], tprob.window, tcfg)
+    jpdf, (jtg, jug) = jax.jit(lambda tt, ww: ji.build_fingerprint(
+        tt, ww, prob.window, cfg, impl="jnp"))(jnp.array(gd["tobs"]), jnp.array(gd["wobs"]))
+    assert pdf.shape == (1, *jpdf.shape) == (1, cfg.spec.nu, cfg.spec.ntg)
+    for got, ref in ((pdf[0], jpdf), (tg.reshape(-1), jtg), (ug.reshape(-1), jug)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+
+
 def test_calc_wasser_waveform_matches_golden_and_jax(golden, ricker):
     """Marginal W, their waveform derivatives and dg on the golden predicted
     waveform: within 1e-8 of the golden values (the JAX package's bars) and

@@ -478,3 +478,13 @@ def test_omega0_lane_two_layer_as_accurate_as_jax(z):
             ours = err(getattr(op.rev, name)[0, lane].numpy())
             theirs = err(np.asarray(jfield.re)[lane] + 1j * np.asarray(jfield.im)[lane])
             assert ours <= 10.0 * theirs + 1e-14, (name, lane, ours, theirs)
+
+
+def test_clp_filter_matches_jax():
+    """The cosine low-pass source filter over both signs of omega, below
+    om1, on the ramp and beyond om2 (ends included), 1e-15 absolute."""
+    om = np.concatenate([np.linspace(-3.0, 3.0, 61), [0.5, 2.0]])
+    got = TL.clp_filter(torch.as_tensor(om), 0.5, 2.0)
+    ref = np.asarray(JL.clp_filter(jnp.asarray(om), 0.5, 2.0))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-15)
+    assert got[-2] == 1.0 and got[-1] == 0.0

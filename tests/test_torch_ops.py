@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import waveform_ot_torch.ops as t_ops
+import waveform_ot_tpu.ops as j_ops
 from waveform_ot_torch import _build, convert
 from waveform_ot_torch.inversion.pipeline import grid6_to_window
 from waveform_ot_torch.models.layered import (
@@ -138,6 +140,36 @@ def test_marg_wasserstein_value_with_tshift_matches_jax():
                                    [float(jt), float(ju)], rtol=1e-12)
         np.testing.assert_allclose(gu[b].numpy(), np.asarray(jgu), rtol=1e-12, atol=1e-14)
         np.testing.assert_allclose(gs[b].item(), float(jgs), rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("distfunc", ["W1", "W2", "W12"])
+def test_ops_wasser_is_the_function_and_matches_jax(distfunc):
+    """``waveform_ot_torch.ops.wasser`` is the reference-style function, as
+    ``waveform_ot_tpu.ops.wasser`` is (each package's ops/__init__ binds the
+    name over the submodule): on the same densities of unequal support
+    sizes, each W_p^p within 1e-12 relative of the JAX package's."""
+    assert callable(t_ops.wasser) and callable(j_ops.wasser)
+    rng = np.random.default_rng(7)
+    f, g = rng.random(14) + 0.05, rng.random(19) + 0.05
+    xf, xg = np.sort(rng.standard_normal(14)), np.sort(rng.standard_normal(19))
+    got = t_ops.wasser(t_make_density_1d(T(f), T(xf)), t_make_density_1d(T(g), T(xg)),
+                       distfunc)
+    ref = j_ops.wasser(j_make_density_1d(jnp.asarray(f), jnp.asarray(xf)),
+                       j_make_density_1d(jnp.asarray(g), jnp.asarray(xg)), distfunc)
+    assert len(got) == len(ref) == (2 if distfunc == "W12" else 1)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-12, atol=0)
+
+
+def test_density_1d_n_matches_jax():
+    """Density1D.n is the support size, pdf's last dimension, as JAX's: for
+    one density and for a batch of them (JAX's by vmap)."""
+    rng = np.random.default_rng(4)
+    f, x = rng.random((3, 11)) + 0.01, np.sort(rng.standard_normal((3, 11)), axis=-1)
+    one = j_make_density_1d(jnp.asarray(f[0]), jnp.asarray(x[0]))
+    batch = jax.vmap(j_make_density_1d)(jnp.asarray(f), jnp.asarray(x))
+    assert t_make_density_1d(T(f[0]), T(x[0])).n == one.n == 11
+    assert t_make_density_1d(T(f), T(x)).n == batch.n == 11
 
 
 def test_wasserstein_1d_rejects_bad_order():

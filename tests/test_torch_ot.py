@@ -31,7 +31,6 @@ from waveform_ot_torch.ops import otpdf as tot
 from waveform_ot_torch.ops import sinkhorn as tsk
 from waveform_ot_torch.ops import sliced as tsl
 from waveform_ot_torch.ops import validate as tval
-from waveform_ot_torch.ops import wasser as tw
 from waveform_ot_tpu.models import gp_noise as jgp
 from waveform_ot_tpu.ops import barycenter as jbar
 from waveform_ot_tpu.ops import errors as jerr
@@ -42,8 +41,9 @@ from waveform_ot_tpu.ops import sinkhorn as jsk
 from waveform_ot_tpu.ops import sliced as jsl
 from waveform_ot_tpu.ops import validate as jval
 
-# the JAX package's ops/__init__ binds the name ``wasser`` to the function
+# both packages' ops/__init__ bind the name ``wasser`` to the function
 jw = importlib.import_module("waveform_ot_tpu.ops.wasser")
+tw = importlib.import_module("waveform_ot_torch.ops.wasser")
 
 T = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float64).copy())
 CLOSED = 1e-10
@@ -561,12 +561,35 @@ def test_validate_copy_matches_jax_package():
     np.testing.assert_allclose(an, fd, atol=1e-7)
 
 
+def test_central_difference_matches_jax():
+    """ops.validate.central_difference of each package's W2 as a function of
+    the source amplitudes: the port's differences of the port's W2 against
+    JAX's of JAX's, 1e-8 of the largest entry (each value is the other's
+    within ~1e-16, and eps 1e-6 scales that by 5e5)."""
+    f, xf, g, xg = _pair_1d(12)
+    tfn = lambda a: float(tw.wasserstein_1d(T(a)[None], T(xf)[None], T(g)[None], T(xg)[None],
+                                            2)[0])
+    jw2 = J(lambda a: jw.wasserstein_1d(a, jnp.asarray(xf), jnp.asarray(g), jnp.asarray(xg), 2))
+    jfn = lambda a: float(jw2(jnp.asarray(a)))
+    assert_rel(tval.central_difference(tfn, f), jval.central_difference(jfn, f), 1e-8)
+
+
 @pytest.mark.parametrize("kernel", ["sqExp", "matern0", "matern1", "matern2", "periodic"])
 def test_gp_covariance_matches_jax(kernel):
     xx = np.linspace(-1.0, 1.0, 17)
     ref = J(jgp.covariance, names=("kernel",))(jnp.asarray(xx), kernel=jgp.KERNELS[kernel],
                                                s1=0.3, rho=0.25)
     assert_rel(tgp.covariance(T(xx), kernel=tgp.KERNELS[kernel], s1=0.3, rho=0.25), ref)
+
+
+@pytest.mark.parametrize("name", ["sq_exp", "matern0", "matern1", "matern2"])
+def test_gp_kernel_functions_match_jax(name):
+    """The kernel functions themselves, k(x, x') over a broadcast grid that
+    holds x == x' (the Matern kernels' |x - x'| = 0), 1e-14 relative."""
+    x = np.random.default_rng(8).uniform(-1.0, 1.0, 9)
+    xx, xp = np.meshgrid(x, np.append(x[:4], 0.3), indexing="ij")
+    ref = getattr(jgp, name)(jnp.asarray(xx), jnp.asarray(xp), 0.3, 0.25)
+    assert_rel(getattr(tgp, name)(T(xx), T(xp), 0.3, 0.25), ref, 1e-14, what=name)
 
 
 @pytest.mark.parametrize("kernel,nx", [("matern0", 40), ("matern2", 25), ("sqExp", 12)])

@@ -10,6 +10,8 @@ import json
 import pickle
 import time
 
+import jax
+import jax.numpy as jnp
 import matplotlib
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ import torch
 
 matplotlib.use("Agg", force=True)
 
+import waveform_ot_torch  # noqa: E402
+import waveform_ot_tpu  # noqa: E402
 from waveform_ot_torch import compat as tc  # noqa: E402
 from waveform_ot_torch import compat_loc_cmt as tlc  # noqa: E402
 from waveform_ot_torch import compat_ricker as tru  # noqa: E402
@@ -103,6 +107,35 @@ def test_checkpoint_round_trip(tmp_path):
     assert cast["x"].dtype == torch.float32 and cast["x"].tolist() == [0.0, 1.0, 2.0]
 
 
+def test_save_checkpoint_takes_pytree_like_jax(tmp_path):
+    """save_checkpoint's tree parameter is ``pytree``, as the JAX package's:
+    the same keyword call on the same seeded NumPy tree writes a checkpoint
+    each package restores equal to the tree (exactly)."""
+    rng = np.random.default_rng(11)
+    tree = {"m": rng.normal(size=4), "state": {"h": rng.normal(size=(2, 3))}}
+    for mod, where in ((io, "port"), (jio, "jax")):
+        mod.save_checkpoint(tmp_path / where, pytree=tree, step=2)
+    got = io.restore_checkpoint(tmp_path / "port", step=2)
+    ref = jio.restore_checkpoint(tmp_path / "jax", tree, step=2)
+    for out in (got, ref):
+        _same(out["m"], tree["m"])
+        _same(out["state"]["h"], tree["state"]["h"])
+
+
+def test_read_pickle_matches_jax(tmp_path):
+    """A pickle written by plain ``pickle.dump`` (as the reference's
+    writepickle does) reads back the same through both packages."""
+    rng = np.random.default_rng(12)
+    data = {"w2": rng.normal(size=(3, 2)), "trace": [0.5, 1.5], "label": "run-2"}
+    path = tmp_path / "ref.pickle"
+    with open(path, "wb") as fh:
+        pickle.dump(data, fh)
+    got, ref = io.read_pickle(path), jio.read_pickle(path)
+    assert list(got) == list(ref) == list(data)
+    for k in data:
+        _same(got[k], ref[k])
+
+
 def test_compat_io_wrappers(tmp_path):
     """compat_ricker's writepickle/readpickle/writejson/readjson and
     compat_loc_cmt's writepickle/readpickle."""
@@ -166,6 +199,36 @@ def test_top_device_ops_names_real_operators():
     assert "aten::mm" in names and all(n.startswith("aten::") for n in names)
     times = [ms for ms, _ in top]
     assert times == sorted(times, reverse=True) and times[-1] > 0.0
+
+
+def test_top_device_ops_leaves_its_trace_in_trace_dir(tmp_path):
+    """With ``trace_dir`` the profiled call's trace is left there, as the
+    JAX package's top_device_ops leaves its jax.profiler trace: a non-empty
+    torch.profiler Chrome trace naming the call's operators, beside the
+    same kind of ranking as without it (the same operators, descending
+    times)."""
+    a = torch.randn(64, 64, dtype=F64, generator=torch.Generator().manual_seed(3))
+    fn = lambda m: torch.sin(m @ m).sum()
+    plain = utils.top_device_ops(fn, a, top=100)
+    traced = utils.top_device_ops(fn, a, top=100, trace_dir=tmp_path / "trace")
+    assert {n for _, n in traced} == {n for _, n in plain}
+    times = [ms for ms, _ in traced]
+    assert times == sorted(times, reverse=True)
+    files = list((tmp_path / "trace").iterdir())
+    assert [f.name.startswith("torch_profiler_") and f.name.endswith(".pt.trace.json")
+            for f in files] == [True]
+    assert "aten::mm" in {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+    jutils.top_device_ops(jax.jit(lambda m: jnp.sin(m @ m).sum()), jnp.asarray(a.numpy()),
+                          top=100, trace_dir=tmp_path / "jax")
+    assert [f for f in (tmp_path / "jax").rglob("*") if f.is_file() and f.stat().st_size]
+
+
+def test_package_binds_utils_and_pyprop8_bridge():
+    """``waveform_ot_torch.utils`` and ``waveform_ot_torch.models.pyprop8_bridge``
+    are bound, as the JAX package binds its own, and are the port's modules."""
+    for top in (waveform_ot_torch, waveform_ot_tpu):
+        assert top.utils.__name__ == f"{top.__name__}.utils"
+        assert top.models.pyprop8_bridge.__name__ == f"{top.__name__}.models.pyprop8_bridge"
 
 
 # ---------------------------------------------------------------------------

@@ -7,4 +7,4 @@ CUDA tensors and as plain PyTorch on CPU tensors. This package never
 imports JAX.
 """
 
-from waveform_ot_torch import inversion, models, ops, parallel  # noqa: F401
+from waveform_ot_torch import inversion, models, ops, parallel, utils  # noqa: F401

@@ -16,3 +16,4 @@ from waveform_ot_torch.models.layered import (  # noqa: F401
 from waveform_ot_torch.models.gp_noise import (  # noqa: F401
     correlated_noise, covariance, create_curve,
 )
+from waveform_ot_torch.models import pyprop8_bridge  # noqa: F401

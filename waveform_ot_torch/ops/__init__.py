@@ -7,7 +7,7 @@ from waveform_ot_torch.ops.otpdf import (  # noqa: F401
     marginals, marginals_raw, validate_density,
 )
 from waveform_ot_torch.ops.wasser import (  # noqa: F401
-    check_common_cdf, common_cdf_mask, transport_plan_1d, transport_plan_jacobian,
+    check_common_cdf, common_cdf_mask, transport_plan_1d, transport_plan_jacobian, wasser,
     wasserstein_1d, wasserstein_1d_autodiff, wasserstein_1d_cost,
 )
 from waveform_ot_torch.ops.marginal import (  # noqa: F401

@@ -28,6 +28,11 @@ class Density1D(NamedTuple):
     x: torch.Tensor
     cdf: torch.Tensor
 
+    @property
+    def n(self) -> int:
+        """The support size, pdf's last dimension."""
+        return self.pdf.shape[-1]
+
 
 def make_density_1d(f: torch.Tensor, x: torch.Tensor) -> Density1D:
     """Densities from unnormalized amplitudes ``f`` (..., n) and locations.

@@ -61,12 +61,12 @@ def _target(path, step):
     return path if step is None else path / f"step_{step}"
 
 
-def save_checkpoint(path, tree, step: int | None = None) -> None:
-    """``tree`` (tensors, arrays, numbers in dicts/lists/tuples) saved by
+def save_checkpoint(path, pytree, step: int | None = None) -> None:
+    """``pytree`` (tensors, arrays, numbers in dicts/lists/tuples) saved by
     ``torch.save`` into ``path`` or ``path/step_{step}``, overwriting."""
     target = _target(path, step)
     target.mkdir(parents=True, exist_ok=True)
-    torch.save(tree, target / "checkpoint.pt")
+    torch.save(pytree, target / "checkpoint.pt")
 
 
 def restore_checkpoint(path, template=None, step: int | None = None):

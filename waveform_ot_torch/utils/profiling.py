@@ -17,14 +17,18 @@ objects (tcalc_fp/tcalc_pdf, FingerprintLib.py:169-177). This module gives:
   * :func:`device_trace` — ``torch.profiler`` over a few calls: the device
     operations, the launch calls and the host-clock time per call;
   * :func:`top_device_ops` — the most expensive operations of one call:
-    device kernels on the card, CPU operators on the CPU;
+    device kernels on the card, CPU operators on the CPU; with
+    ``trace_dir`` it leaves the call's trace there;
   * :class:`StageTimer` — named stage timings as an explicit record.
 """
 
 from __future__ import annotations
 
+import os
 import statistics
+import tempfile
 import time
+from pathlib import Path
 from typing import Callable
 
 import torch
@@ -155,13 +159,23 @@ def device_trace(call: Callable, calls: int = 1, card: bool = True):
     return prof, dev_ev, wall_ms
 
 
-def top_device_ops(fn: Callable, *args, top: int = 20) -> list[tuple[float, str]]:
+def top_device_ops(fn: Callable, *args, top: int = 20,
+                   trace_dir=None) -> list[tuple[float, str]]:
     """Run ``fn(*args)`` once to warm up, then once under torch.profiler;
     return [(total_ms, op_name)] sorted by time, descending: when the output
     lives on the card, its kernels' summed device time (a trace with no
-    device time raises); otherwise the CPU operators' self time."""
+    device time raises); otherwise the CPU operators' self time. With
+    ``trace_dir`` the profiled call's trace is left there as a Chrome trace,
+    ``torch_profiler_*.pt.trace.json`` (the JAX package leaves its
+    jax.profiler trace in ``trace_dir``)."""
     card = _on_card(fn(*args))
     prof, dev_ev, _ = device_trace(lambda: fn(*args), card=card)
+    if trace_dir is not None:
+        Path(trace_dir).mkdir(parents=True, exist_ok=True)
+        fd, trace = tempfile.mkstemp(prefix="torch_profiler_", suffix=".pt.trace.json",
+                                     dir=trace_dir)
+        os.close(fd)
+        prof.export_chrome_trace(trace)
     totals: dict[str, float] = {}
     if card:
         if not dev_ev:
