@@ -450,7 +450,7 @@ def test_launch_counter_under_threads():
     total0 = cuda_distance.LAUNCHES
     by0 = dict(cuda_distance.LAUNCHES_BY_DEVICE)
     devs = [torch.device("cuda", i % 4) for i in range(16)]
-    barrier = threading.Barrier(len(devs))
+    barrier = threading.Barrier(len(devs), timeout=60)
 
     def hammer(dev):
         barrier.wait()
