@@ -671,15 +671,26 @@ def held_launches(phase: str):
     """Every launch of the distance-field kernel inside the block held field
     for field against its plain version on the same card inputs: d, iclose,
     lam and dvec must equal distance_field_torch's bit for bit, or the launch
-    raises. Yields {"shapes": {(B, nt, nu, ntg, dtype): launches held},
-    "check_s": host seconds the checks took}."""
+    raises. A launch recorded into a CUDA graph runs no kernel and is not
+    held; the launches its replays make are counted apart (a replay equals
+    the eager call bit for bit, tests/test_torch_graph.py, and the first
+    call of each graph runs eagerly, held here). Yields {"shapes": {(B, nt,
+    nu, ntg, dtype): launches held}, "replayed": launches made by graph
+    replays, "check_s": host seconds the checks took}."""
+    from waveform_ot_torch.inversion import cuda_graph
     from waveform_ot_torch.ops import cuda_distance, distance_field_torch
 
-    real = cuda_distance.distance_field_cuda
-    held = {"shapes": {}, "check_s": 0.0}
+    real, real_replay = cuda_distance.distance_field_cuda, cuda_graph._replay
+    held = {"shapes": {}, "replayed": 0, "check_s": 0.0}
+
+    def replay(entry, ms):
+        held["replayed"] += entry.launches
+        return real_replay(entry, ms)
 
     def checked(verts, tgrid, ugrid):
         out = real(verts, tgrid, ugrid)
+        if torch.cuda.is_current_stream_capturing():
+            return out
         t0 = time.perf_counter()
         with torch.no_grad():
             plain = distance_field_torch(verts, tgrid, ugrid)
@@ -693,11 +704,11 @@ def held_launches(phase: str):
         held["check_s"] += time.perf_counter() - t0
         return out
 
-    cuda_distance.distance_field_cuda = checked
+    cuda_distance.distance_field_cuda, cuda_graph._replay = checked, replay
     try:
         yield held
     finally:
-        cuda_distance.distance_field_cuda = real
+        cuda_distance.distance_field_cuda, cuda_graph._replay = real, real_replay
 
 
 class PhaseChecks:
@@ -748,13 +759,16 @@ class PhaseChecks:
         return ms
 
     def check_held(self, held):
-        """Every counted launch went through held_launches' check."""
+        """Every counted launch went through held_launches' check or was a
+        CUDA graph's replay."""
         n_held = sum(held["shapes"].values())
         print(f"[{self.tag}] launches held bit for bit against distance_field_torch on their "
-              f"card inputs: {n_held}, of {self.n_counted} counted outside the timing runs; by "
-              f"(B, nt, nu, ntg, dtype) {held['shapes']}; {held['check_s']:.2f} s of checks")
-        if n_held < self.n_counted:
-            raise AssertionError(f"{self.n_counted - n_held} of {self.n_counted} counted "
+              f"card inputs: {n_held}, and {held['replayed']} made by CUDA graph replays, of "
+              f"{self.n_counted} counted outside the timing runs; by (B, nt, nu, ntg, dtype) "
+              f"{held['shapes']}; {held['check_s']:.2f} s of checks")
+        if n_held + held["replayed"] < self.n_counted:
+            raise AssertionError(f"{self.n_counted - n_held - held['replayed']} of "
+                                 f"{self.n_counted} counted "
                                  f"launches went past the check")
 
 

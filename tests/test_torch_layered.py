@@ -430,8 +430,8 @@ def test_omega0_lane_as_accurate_as_jax(setup, zi):
     model = TL.fukuoka_model(device=CPU)
     plan = TL._synth_plan(NT, 1.0, 2, ("clp_step", 0.05, 0.2), NK, KMAX, np.inf)
     band = plan.bands[0]._replace(om=plan.bands[0].om[:2])
-    op, _ = TL._surface_operator(model, torch.tensor([z], dtype=F64), band, plan.k_np,
-                                 0.023, True, False)
+    op, _ = TL._surface_operator(model, torch.tensor([z], dtype=F64),
+                                 TL._band_grid(band, plan.k_np, 0.023, CPU), True, False)
     for lane in range(2):
         exact = _ld_surface_operator(model, np.longdouble(z), plan.k_np.astype(np.longdouble),
                                      LD(complex(band.om[lane], 0.023)))
@@ -463,8 +463,8 @@ def test_omega0_lane_two_layer_as_accurate_as_jax(z):
                           DRIVERS_KMAX, np.inf)
     band = plan.bands[0]._replace(om=plan.bands[0].om[:2])
     model = TL.layered_model_from_table(DRIVERS_TABLE, device=CPU)
-    op, _ = TL._surface_operator(model, torch.tensor([z], dtype=F64), band, plan.k_np,
-                                 0.023, True, False)
+    op, _ = TL._surface_operator(model, torch.tensor([z], dtype=F64),
+                                 TL._band_grid(band, plan.k_np, 0.023, CPU), True, False)
     jops = jax.jit(lambda zz: JL._band_operators(JL.layered_model_from_table(DRIVERS_TABLE),
                                                  zz, plan.k_np, band.om, "f64", 0.023,
                                                  True))(jnp.asarray(z))

@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from waveform_ot_torch._tree import TensorTreeModule
+from waveform_ot_torch.inversion import cuda_graph
 from waveform_ot_torch.inversion.pipeline import (
     Targets, TraceConfig, as_model_batch, build_target, repeat_targets,
     trace_misfit,
@@ -181,7 +182,18 @@ def loc_cmt_value_and_grad(ms, prob: LocCMTProblem, opts: InvOptions,
                            cfg: TraceConfig, forward: Callable | None = None):
     """(misfits (k,), gradients (k, nm)) of models ``ms`` (k, nm) by one
     autograd pass of the sum over lanes; (scalar, (nm,)) for one model.
-    The reference optfunc contract, batched."""
+    The reference optfunc contract, batched. One model on a CUDA device
+    is one replay of a captured CUDA graph of the whole call
+    (:mod:`waveform_ot_torch.inversion.cuda_graph`): the same kernels in
+    the same order."""
+    if cuda_graph.engages(ms):
+        return cuda_graph.value_and_grad(_value_and_grad, ms, prob, opts, cfg, forward)
+    return _value_and_grad(ms, prob, opts, cfg, forward)
+
+
+def _value_and_grad(ms, prob: LocCMTProblem, opts: InvOptions, cfg: TraceConfig,
+                    forward: Callable | None):
+    """:func:`loc_cmt_value_and_grad` run op by op."""
     ms = ms.detach().requires_grad_(True)
     with torch.enable_grad():
         v = loc_cmt_misfit(ms, prob, opts, cfg, forward=forward)

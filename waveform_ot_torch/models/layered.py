@@ -24,6 +24,7 @@ shape (..., nr, 3, nt).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -46,10 +47,30 @@ _SERIES_TERMS = 36
 _ASYM_TERMS = 9
 
 
+class _BesselTables(NamedTuple):
+    """The orders' constants on one device: (n,) rows, as columns over x."""
+
+    series: torch.Tensor  # (_SERIES_TERMS, n) row j: (-1)^j / (j! (j+m)!)
+    mu: torch.Tensor      # (n,) 4 m^2
+    phase: torch.Tensor   # (n,) (2m + 1) pi / 4
+
+
+@functools.cache
+def _bessel_tables(n: int, dtype, device) -> _BesselTables:
+    """Built at the first call on a device and kept: no call after it copies
+    host data, so the assembly can be captured in a CUDA graph."""
+    arr = lambda vals: torch.tensor(vals, dtype=dtype, device=device)
+    return _BesselTables(
+        series=arr([[(-1.0) ** j / (math.factorial(j) * math.factorial(j + m)) for m in range(n)]
+                    for j in range(_SERIES_TERMS)]),
+        mu=arr([4.0 * m * m for m in range(n)]),
+        phase=arr([(2 * m + 1) * math.pi / 4.0 for m in range(n)]))
+
+
 def _bessel_orders(x: torch.Tensor, n: int) -> torch.Tensor:
     """(n, *x.shape): J_0(x) .. J_{n-1}(x), every order in one stacked pass."""
     shape = (n,) + (1,) * x.dim()
-    col = lambda vals: torch.tensor(vals, dtype=x.dtype, device=x.device).reshape(shape)
+    tab = _bessel_tables(n, x.dtype, x.device)
     xc = _BESSEL_CROSSOVER_F32 if x.dtype == torch.float32 else _BESSEL_CROSSOVER
     below = x < xc
     # ascending series sum_j (-1)^j (x/2)^(2j+m) / (j! (j+m)!), by Horner in q
@@ -57,8 +78,7 @@ def _bessel_orders(x: torch.Tensor, n: int) -> torch.Tensor:
     q = half * half
     acc = torch.zeros((n,) + x.shape, dtype=x.dtype, device=x.device)
     for j in range(_SERIES_TERMS - 1, -1, -1):
-        c = col([(-1.0) ** j / (math.factorial(j) * math.factorial(j + m)) for m in range(n)])
-        acc = acc * q + c
+        acc = acc * q + tab.series[j].reshape(shape)
     h2 = half * half
     powers = [torch.ones_like(half), half, h2, h2 * half, h2 * h2][:n]   # as integer powers
     series = acc * torch.stack(powers)
@@ -66,7 +86,7 @@ def _bessel_orders(x: torch.Tensor, n: int) -> torch.Tensor:
     # X = x - (2m+1) pi/4 (Abramowitz & Stegun 9.2.5-9.2.10)
     xa = torch.clamp_min(x, xc)
     inv8x = 1.0 / (8.0 * xa)
-    mu = col([4.0 * m * m for m in range(n)])
+    mu = tab.mu.reshape(shape)
     p = torch.ones_like(acc)
     qs = torch.zeros_like(acc)
     term = torch.ones_like(acc)
@@ -76,7 +96,7 @@ def _bessel_orders(x: torch.Tensor, n: int) -> torch.Tensor:
             qs = qs + term * (-1.0) ** ((k - 1) // 2)
         else:
             p = p + term * (-1.0) ** (k // 2)
-    chi = xa - col([(2 * m + 1) * math.pi / 4.0 for m in range(n)])
+    chi = xa - tab.phase.reshape(shape)
     asym = torch.sqrt(2.0 / (math.pi * xa)) * (p * torch.cos(chi) - qs * torch.sin(chi))
     return torch.where(below, series, asym)
 
@@ -239,11 +259,17 @@ def stf_spectrum(om_real, om_c, stf, dtype=torch.float64):
     raise ValueError(f"unknown stf kind: {stf[0]!r}")
 
 
-def _synthesize(U, nt: int, dt, sigma, nfft: int):
-    """Spectra (..., nf) at omega_n + i sigma -> time series (..., nt)."""
+def _undamping(nt: int, dt, sigma, dtype, device) -> torch.Tensor:
+    """(nt,) e^{+sigma t} at the output samples, undoing the damping."""
+    tt = dt * torch.arange(nt, dtype=dtype, device=device)
+    return torch.exp(sigma * tt)
+
+
+def _synthesize(U, nfft: int, dt, undamp):
+    """Spectra (..., nf) at omega_n + i sigma -> time series (..., nt), with
+    ``undamp`` (nt,) of :func:`_undamping`."""
     u = torch.fft.irfft(U.conj(), n=nfft, dim=-1) / dt
-    tt = dt * torch.arange(nt, dtype=u.dtype, device=u.device)
-    return u[..., :nt] * torch.exp(sigma * tt)
+    return u[..., :undamp.shape[0]] * undamp
 
 
 def _flip_z(dtype, device) -> torch.Tensor:
@@ -309,7 +335,8 @@ def wholespace_seismograms(x, y, z, mxyz, stations: StationSet, nt: int = 61,
     kb2 = ((om_c / vs) ** 2)[:, None]
     spec = -(kb2 * mdg + third) / (4.0 * math.pi * rho * (om_c * om_c)[:, None])
     s = stf_spectrum(om, om_c, stf, dtype) * torch.exp(1j * om_c * (-t0))
-    u = _synthesize(spec.movedim(-1, 1) * s, nt, dt, alpha_damp, nfft)
+    u = _synthesize(spec.movedim(-1, 1) * s, nfft, dt,
+                    _undamping(nt, dt, alpha_damp, dtype, device))
     u = u * torch.tensor([1.0, 1.0, -1.0], dtype=dtype, device=device)[:, None]
     return t0 + dt * torch.arange(nt, dtype=dtype, device=device), u
 
@@ -552,22 +579,44 @@ class _Band(NamedTuple):
     cdtype: torch.dtype
 
 
-def _surface_operator(model: LayeredModel, z, band: _Band, k_np, alpha_damp,
-                      free_surface: bool, tangent: bool):
-    """The surface operator of one band for source depths z (K,), and with
-    ``tangent`` its derivative in z (:func:`_depth_tangent`), else None.
+class _BandGrid(NamedTuple):
+    """One band's grids on a device, in the real dtype of its stack algebra
+    (:func:`_band_grid`), and the identity two-ports of that algebra."""
+
+    cdtype: torch.dtype
+    k: torch.Tensor      # (nk,) wavenumber midpoints
+    om_c: torch.Tensor   # (nf_band,) complex frequencies omega + i alpha
+    ident2: _Stack
+    identsh: _Stack
+
+
+def _band_grid(band: _Band, k_np, alpha_damp, device) -> _BandGrid:
+    """The tensors of one band on ``device``, built once per forward and
+    device (:func:`make_layered_stages`): a call then copies no host data."""
+    cdtype = band.cdtype
+    rdtype = cdtype.to_real()
+    om = torch.as_tensor(band.om, dtype=rdtype, device=device)
+    return _BandGrid(cdtype=cdtype, k=torch.as_tensor(k_np, dtype=rdtype, device=device),
+                     om_c=torch.complex(om, torch.full_like(om, alpha_damp)),
+                     ident2=_stack2_identity(cdtype, device),
+                     identsh=_stacksh_identity(cdtype, device))
+
+
+def _surface_operator(model: LayeredModel, z, grid: _BandGrid, free_surface: bool,
+                      tangent: bool):
+    """The surface operator of one band (its :func:`_band_grid`) for source
+    depths z (K,), and with ``tangent`` its derivative in z
+    (:func:`_depth_tangent`), else None.
 
     The layer eigenblocks and the interface R/T depend on the model and the
     grids only: they are solved once per call, outside the layer loops,
     which hold only the partial thicknesses, the masks and the stack
     compositions."""
-    cdtype, device = band.cdtype, z.device
-    rdtype = torch.float64 if cdtype == torch.complex128 else torch.float32
+    cdtype, device = grid.cdtype, z.device
+    rdtype = cdtype.to_real()
     model = model.to(device, rdtype)
     z = z.to(rdtype)
-    k = torch.as_tensor(k_np, dtype=rdtype, device=device)
-    om = torch.as_tensor(band.om, dtype=rdtype, device=device)
-    om_c = torch.complex(om, torch.full_like(om, alpha_damp))
+    k, om_c = grid.k, grid.om_c
     nlay = model.nlayers
     iface_depth = model.interfaces()
     tops = torch.cat([iface_depth.new_zeros(1), iface_depth])
@@ -580,8 +629,7 @@ def _surface_operator(model: LayeredModel, z, band: _Band, k_np, alpha_damp,
     mu = model.rho * model.vs ** 2
     ifacessh = _interfacesh(mu[:-1, None, None], blk.gb[:-1],
                             mu[1:, None, None], blk.gb[1:])
-    ident2 = _stack2_identity(cdtype, device)
-    identsh = _stacksh_identity(cdtype, device)
+    ident2, identsh = grid.ident2, grid.identsh
     eye = _eye2(cdtype, device)
     Ud0, Uu0 = blk.Ud[0], blk.Uu[0]
     if free_surface:
@@ -667,9 +715,9 @@ def _moment_coeffs(mxyz):
     """Moment tensor (..., 3, 3) in the (x=N, y=E, z=Up) frame -> the six
     azimuthal coefficients (a0, a0z, a1c, a1s, a2c, a2s), (...) each, in
     the z-down frame. Linear in ``mxyz``."""
-    m = mxyz * _flip_z(mxyz.dtype, mxyz.device)
-    return ((m[..., 0, 0] + m[..., 1, 1]) / 2.0, m[..., 2, 2], m[..., 0, 2],
-            m[..., 1, 2], (m[..., 0, 0] - m[..., 1, 1]) / 2.0, m[..., 0, 1])
+    m = mxyz     # the z-down frame flips the signs of Mxz and Myz (_flip_z)
+    return ((m[..., 0, 0] + m[..., 1, 1]) / 2.0, m[..., 2, 2], -m[..., 0, 2],
+            -m[..., 1, 2], (m[..., 0, 0] - m[..., 1, 1]) / 2.0, m[..., 0, 1])
 
 
 def _response(rev: _Reverb, src: _SourceLayer, k, om_c, a, drev: _Reverb | None = None):
@@ -709,8 +757,10 @@ def _contract(mat, vec):
     return torch.view_as_complex(out.reshape(g, mat.shape[1], nf, nc, 2))
 
 
-# (P-SV channel indices, SH channel indices) of azimuthal order m
-_ORDER_CHANNELS = {0: ([0], []), 1: ([1, 2], [0, 1]), 2: ([3, 4], [2, 3])}
+# (P-SV channel indices, SH channel indices) of azimuthal order m, taken as
+# slices: an index list would be copied from the host at every call
+_ORDER_CHANNELS = {0: (range(0, 1), range(0)), 1: (range(1, 3), range(0, 2)),
+                   2: (range(3, 5), range(2, 4))}
 
 
 def _ipow(z, p: int):
@@ -736,10 +786,11 @@ def _assemble(u2, ush, r, phi, rho_s, k, dk):
     hw, vw, sw = u2[..., 0] * w, u2[..., 1] * w, ush * w
     ur = uphi = uz = 0.0
     for m, (ic, isx) in _ORDER_CHANNELS.items():
-        hs = torch.cat([hw[:, :, ic], sw[:, :, isx]], 2) if isx else hw[:, :, ic]
+        hic = hw[:, :, ic.start:ic.stop]
+        hs = torch.cat([hic, sw[:, :, isx.start:isx.stop]], 2) if isx else hic
         Pc = _contract(jp[m], hs)
         Qc = _contract(jq[m], hs) if isx else None
-        Zc = _contract(j[m], vw[:, :, ic])
+        Zc = _contract(j[m], vw[:, :, ic.start:ic.stop])
         cm, sm = torch.cos(m * phi)[..., None], torch.sin(m * phi)[..., None]
         for n, c in enumerate(ic):
             Ph, Zv = Pc[..., n], Zc[..., n]
@@ -816,46 +867,53 @@ def _synth_plan(nt, dt, pad, stf, nk, kmax, hp_below) -> _SynthPlan:
                       dk=dk, bands=bands)
 
 
-def _finish_synthesis(spec, plan: _SynthPlan, nt, dt, stf, alpha_damp, t0):
+class _SynthGrid(NamedTuple):
+    """Stage B's grids in one working dtype on one device (:func:`_synth_grid`)."""
+
+    k: torch.Tensor       # (nk,) wavenumber midpoints
+    source: torch.Tensor  # (nf,) source spectrum times the origin-time shift
+    undamp: torch.Tensor  # (nt,) e^{+sigma t}
+    zsign: torch.Tensor   # (3, 1) z-down -> z-up
+
+
+def _synth_grid(plan: _SynthPlan, nt, dt, stf, alpha_damp, t0, dtype, device) -> _SynthGrid:
+    """The tensors of stage B in ``dtype`` on ``device``, built once per
+    forward, device and dtype (:func:`make_layered_stages`)."""
+    om = torch.as_tensor(plan.om_np, dtype=dtype, device=device)
+    om_cw = torch.complex(om, torch.full_like(om, alpha_damp))
+    return _SynthGrid(
+        k=torch.as_tensor(plan.k_np, dtype=torch.float64, device=device).to(dtype),
+        source=stf_spectrum(om, om_cw, stf, dtype) * torch.exp(1j * om_cw * (-t0)),
+        undamp=_undamping(nt, dt, alpha_damp, dtype, device),
+        zsign=torch.tensor([1.0, 1.0, -1.0], dtype=dtype, device=device)[:, None])
+
+
+def _finish_synthesis(spec, plan: _SynthPlan, dt, syn: _SynthGrid):
     """Active-band spectra (..., 3, n_act) -> (..., 3, nt) seismograms: zero
     fill to the full rfft grid, source spectrum and origin-time shift,
     inverse FFT with the damping removed, z-down -> z-up."""
-    dtype = spec.real.dtype
-    if dtype != torch.float64:
+    if spec.real.dtype != torch.float64:
         # Im U(omega = 0) is 0 exactly for a real signal's spectrum; pin it
         spec = torch.complex(spec.real, torch.cat([torch.zeros_like(spec.imag[..., :1]),
                                                    spec.imag[..., 1:]], -1))
-    om = torch.as_tensor(plan.om_np, dtype=dtype, device=spec.device)
-    spec = torch.cat([spec, spec.new_zeros(spec.shape[:-1] + (om.shape[0] - spec.shape[-1],))], -1)
-    om_cw = torch.complex(om, torch.full_like(om, alpha_damp))
-    s = stf_spectrum(om, om_cw, stf, dtype) * torch.exp(1j * om_cw * (-t0))
-    u = _synthesize(spec * s, nt, dt, alpha_damp, plan.nfft)
-    return u * torch.tensor([1.0, 1.0, -1.0], dtype=dtype, device=u.device)[:, None]
+    nf = plan.om_np.shape[0]
+    spec = torch.cat([spec, spec.new_zeros(spec.shape[:-1] + (nf - spec.shape[-1],))], -1)
+    return _synthesize(spec * syn.source, plan.nfft, dt, syn.undamp) * syn.zsign
 
 
-def _band_responses(ops, dops, a, plan: _SynthPlan, alpha_damp, dtype):
-    """Channel responses (:func:`_response`) of every band, in the complex
-    dtype of ``dtype``, the bands concatenated over frequency; given the
-    operators' z-derivatives ``dops``, the responses' z-derivatives follow
-    as a second half."""
+def _band_responses(ops, dops, a, grids, dtype):
+    """Channel responses (:func:`_response`) of every band (its
+    :func:`_band_grid` in ``grids``), in the complex dtype of ``dtype``, the
+    bands concatenated over frequency; given the operators' z-derivatives
+    ``dops``, the responses' z-derivatives follow as a second half."""
     cwork = torch.complex128 if dtype == torch.float64 else torch.complex64
-    device = ops[0].src.rho.device
     parts, dparts = [], []
-    for op, band, drev in zip(ops, plan.bands, dops if dops is not None else [None] * len(ops)):
-        rdtype = band.cdtype.to_real()
-        kb = torch.as_tensor(plan.k_np, dtype=rdtype, device=device)
-        om_c = torch.complex(torch.as_tensor(band.om, dtype=rdtype, device=device),
-                             torch.full((len(band.om),), alpha_damp, dtype=rdtype, device=device))
-        u2, ush, dresp = _response(op.rev, op.src, kb, om_c, a, drev)
+    for op, grid, drev in zip(ops, grids, dops if dops is not None else [None] * len(ops)):
+        u2, ush, dresp = _response(op.rev, op.src, grid.k, grid.om_c, a, drev)
         parts.append((u2.to(cwork), ush.to(cwork)))
         if dresp is not None:
             dparts.append(tuple(v.to(cwork) for v in dresp))
     return tuple(torch.cat(p, 1) for p in zip(*(parts + dparts)))
-
-
-def _k(plan: _SynthPlan, like) -> torch.Tensor:
-    """The wavenumber midpoints in the dtype and on the device of ``like``."""
-    return torch.as_tensor(plan.k_np, dtype=torch.float64, device=like.device).to(like.dtype)
 
 
 def _offsets(stns: StationSet, x, y):
@@ -920,17 +978,33 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
 
     The stack algebra runs in complex128 (complex64 above ``hp_below``
     rad/s); stage B runs in the stations' dtype. ``model`` defaults to
-    :func:`fukuoka_model` on the device of the sources. Returns
+    :func:`fukuoka_model` on the device of the sources. The grids, the
+    source spectrum and the default model are built on a device at its
+    first call and kept, so no later call copies host data to the device
+    (a call can be captured in a CUDA graph). Returns
     ``LayeredStages(stage_a, stage_b, jacobian)``.
     """
     plan = _synth_plan(nt, dt, pad, stf, nk, kmax, math.inf if hp_below is None else hp_below)
 
+    @functools.cache
+    def band_grids(device):
+        """The model and every band's grids on ``device``."""
+        mdl = fukuoka_model(device=device) if model is None else model
+        return mdl, tuple(_band_grid(band, plan.k_np, alpha_damp, device) for band in plan.bands)
+
+    @functools.cache
+    def synth_grid(device, dtype):
+        return _synth_grid(plan, nt, dt, stf, alpha_damp, t0, dtype, device)
+
     def stage_a(z, tangent: bool = False):
-        mdl = fukuoka_model(device=z.device) if model is None else model
-        out = [_surface_operator(mdl, torch.atleast_1d(z), band, plan.k_np, alpha_damp,
-                                 free_surface, tangent) for band in plan.bands]
+        mdl, grids = band_grids(z.device)
+        out = [_surface_operator(mdl, torch.atleast_1d(z), grid, free_surface, tangent)
+               for grid in grids]
         ops = tuple(o for o, _ in out)
         return (ops, tuple(d for _, d in out)) if tangent else ops
+
+    def responses(ops, dops, a, dtype):
+        return _band_responses(ops, dops, a, band_grids(ops[0].src.rho.device)[1], dtype)
 
     def stage_b(ops, x, y, z, a, stns: StationSet, dops=None):
         like = stns.x
@@ -942,14 +1016,15 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
         g, n = x.shape
         nr = like.shape[0]
         a = tuple(torch.as_tensor(ai).reshape(-1, 1, 1) for ai in a)
-        u2, ush = _band_responses(ops, dops, a, plan, alpha_damp, dtype)
+        syn = synth_grid(like.device, dtype)
+        u2, ush = responses(ops, dops, a, dtype)
         r, phi = _offsets(stns, x[..., None], y[..., None])
         spec = _assemble(u2, ush, r.reshape(g, n * nr), phi.reshape(g, n * nr),
-                         ops[0].src.rho.to(dtype), _k(plan, like), plan.dk).reshape(g, n, nr, 3, -1)
+                         ops[0].src.rho.to(dtype), syn.k, plan.dk).reshape(g, n, nr, 3, -1)
         if dops is not None:
             nf = spec.shape[-1] // 2
             spec = _DepthLink.apply(spec[..., :nf], z, spec[..., nf:].detach())
-        u = _finish_synthesis(spec, plan, nt, dt, stf, alpha_damp, t0)
+        u = _finish_synthesis(spec, plan, dt, syn)
         return u if grouped else u[:, 0]
 
     def jacobian(x, y, z, mxyz, stns: StationSet, loc: bool = True, mt: bool = True):
@@ -957,12 +1032,13 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
         dtype, nr = like.dtype, like.shape[0]
         x, y, z = _as_sources(x, y, z, like)
         ops, dops = stage_a(z.detach(), tangent=True) if loc else (stage_a(z.detach()), None)
-        rho, k = ops[0].src.rho.to(dtype), _k(plan, like)
+        syn = synth_grid(like.device, dtype)
+        rho, k = ops[0].src.rho.to(dtype), syn.k
         mxyz = torch.as_tensor(mxyz, dtype=dtype, device=like.device)
         a = tuple(c.reshape(1, 1, 1) for c in _moment_coeffs(mxyz))
         with torch.no_grad():
             if loc:
-                u2, ush = _band_responses(ops, dops, a, plan, alpha_damp, dtype)
+                u2, ush = responses(ops, dops, a, dtype)
                 nf = u2.shape[1] // 2
                 with fwAD.dual_level():
                     basis = torch.eye(2, dtype=dtype, device=like.device)
@@ -975,19 +1051,18 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
                 specs = [val[:nr, ..., :nf], tan[:nr, ..., :nf], tan[nr:, ..., :nf],
                          val[:nr, ..., nf:]]
             else:
-                u2, ush = _band_responses(ops, None, a, plan, alpha_damp, dtype)
+                u2, ush = responses(ops, None, a, dtype)
                 r, phi = _offsets(stns, x[:, None], y[:, None])      # (1, nr)
                 specs = [_assemble(u2, ush, r, phi, rho, k, plan.dk)[0]]
             if mt:
                 units = _moment_coeffs(mxyz_from_upper(torch.eye(6, dtype=dtype,
                                                                  device=like.device)))
-                u2, ush = _band_responses(tuple(_expand_operator(op, 6) for op in ops), None,
-                                          tuple(c.reshape(6, 1, 1) for c in units), plan,
-                                          alpha_damp, dtype)
+                u2, ush = responses(tuple(_expand_operator(op, 6) for op in ops), None,
+                                    tuple(c.reshape(6, 1, 1) for c in units), dtype)
                 r, phi = _offsets(stns, x[:, None], y[:, None])
                 specs += list(_assemble(u2, ush, r.expand(6, nr), phi.expand(6, nr),
                                         rho.expand(6), k, plan.dk))
-            u = _finish_synthesis(torch.stack(specs), plan, nt, dt, stf, alpha_damp, t0)
+            u = _finish_synthesis(torch.stack(specs), plan, dt, syn)
         return u[0], u[1:]
 
     return LayeredStages(stage_a, stage_b, jacobian)

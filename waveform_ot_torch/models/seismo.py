@@ -7,6 +7,7 @@ through autograd; no custom rule is needed.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -17,10 +18,16 @@ _SYM_INDEX = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
 _TRIU = ((0, 0, 0, 1, 1, 2), (0, 1, 2, 1, 2, 2))
 
 
+@functools.cache
+def _sym_index(device) -> torch.Tensor:
+    """_SYM_INDEX on ``device``, copied from the host once."""
+    return torch.tensor(_SYM_INDEX, device=device)
+
+
 def mxyz_from_upper(vals: torch.Tensor) -> torch.Tensor:
     """Symmetric (..., 3, 3) from the 6 upper-triangle entries (..., 6) in
     row-major order (Mxx, Mxy, Mxz, Myy, Myz, Mzz)."""
-    return vals[..., torch.tensor(_SYM_INDEX, device=vals.device)]
+    return vals[..., _sym_index(vals.device)]
 
 
 def upper_from_mxyz(m: torch.Tensor) -> torch.Tensor:
@@ -68,7 +75,8 @@ class MediumConfig(NamedTuple):
 
     @staticmethod
     def default(dtype=torch.float64, device="cuda") -> "MediumConfig":
-        arr = lambda v: torch.tensor(v, dtype=dtype, device=device)
+        # filled on the device: no copy from the host
+        arr = lambda v: torch.full((), v, dtype=dtype, device=device)
         return MediumConfig(vp=arr(6.0), vs=arr(3.46), rho=arr(2.7))
 
 

@@ -146,9 +146,10 @@ def distance_field_cuda(verts, tgrid, ugrid):
     return d, iclose, lam, dvec
 
 
-def count_launch(device: torch.device) -> None:
-    """Add one launch on ``device`` to LAUNCHES and LAUNCHES_BY_DEVICE."""
+def count_launch(device: torch.device, n: int = 1) -> None:
+    """Add ``n`` launches on ``device`` to LAUNCHES and LAUNCHES_BY_DEVICE
+    (a CUDA graph's replay adds the launches it holds)."""
     global LAUNCHES
     with _COUNT_LOCK:
-        LAUNCHES += 1
-        LAUNCHES_BY_DEVICE[str(device)] = LAUNCHES_BY_DEVICE.get(str(device), 0) + 1
+        LAUNCHES += n
+        LAUNCHES_BY_DEVICE[str(device)] = LAUNCHES_BY_DEVICE.get(str(device), 0) + n
