@@ -9,7 +9,7 @@ seeds), and for each control seed the control's: the float64 reference put
 in the program's place and computed in bfloat16, the nearest precision below
 the configuration's float32 that the path would take (TF32 is no step here:
 the port's one matrix product runs in float64). For a study the control is
-the port's solver driving the bfloat16 reference. The upper reading is the
+the mix's solver (the port's, device or host) driving the bfloat16 reference. The upper reading is the
 control's smallest. One JSON line per seed and side, then a summary line.
 The benchmark's own runs do not run this.
 """

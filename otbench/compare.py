@@ -6,13 +6,17 @@ the seed.
                misfits of scan nodes and calls, and the misfits a study
                reports at its end points;
   grad_gap     the largest |g - g_ref| / max(|g_ref|, median |g_ref|) over
-               the compared points (norms of the 3-vectors; the median
-               keeps nodes near the minimum, where |g_ref| is all but zero,
-               from reading rounding as a fault);
-  grad_end     a study's largest reference gradient norm (misfit per km) at
-               the compared end points that the solver reports converged:
-               that they are stationary points of the reference's misfit
-               (infinite when none of them is reported converged);
+               the compared points, of the location block of the gradient
+               (norms of the 3-vectors; the median keeps nodes near the
+               minimum, where |g_ref| is all but zero, from reading
+               rounding as a fault);
+  grad_gap_mt  the same over the moment-tensor block (the six components
+               after the location), where the models have one;
+  grad_end     a study's largest reference gradient norm (of the whole
+               gradient, the norm the solver's tol reads) at the compared
+               end points that the solver reports converged: that they are
+               stationary points of the reference's misfit (infinite when
+               none of them is reported converged);
   unconverged_share  a study's share of lanes, over every start of every
                study the window finished, that the solver reports not
                converged. It needs no reference: the two numbers above judge
@@ -20,8 +24,9 @@ the seed.
                converged, so a solver that leaves lanes where they began and
                flags them would pass them; this number does not.
 
-Each number has a limit in ``limits/<cell>.json``; a run is correct when
-every number is at or below its limit (a number that is not finite is not).
+Each number that ``limits/<cell>.json`` names has a limit there; a run is
+correct when every such number is at or below its limit (a number that is
+not finite is not). A number the file does not name is not judged.
 """
 
 from __future__ import annotations
@@ -37,22 +42,30 @@ def sample(rng: np.random.Generator, n: int, k: int) -> np.ndarray:
     return np.sort(rng.choice(n, size=min(n, k), replace=False))
 
 
+def block_gap(g, g_ref) -> float:
+    """The largest |g - g_ref| / max(|g_ref|, median |g_ref|) over rows."""
+    n_ref = torch.linalg.vector_norm(g_ref, dim=-1)
+    scale = torch.maximum(n_ref, n_ref.median())
+    return float((torch.linalg.vector_norm(g - g_ref, dim=-1) / scale).max())
+
+
 def gaps(v, v_ref, g=None, g_ref=None) -> dict:
-    """value_gap and, given gradients (k, 3), grad_gap."""
+    """value_gap and, given gradients (k, nm), grad_gap of the location
+    block and, where nm > 3, grad_gap_mt of the moment-tensor block."""
     v, v_ref = v.double().cpu(), v_ref.double().cpu()
     out = {"value_gap": float(((v - v_ref).abs() / v_ref.abs()).max())}
     if g is not None:
         g, g_ref = g.double().cpu(), g_ref.double().cpu()
-        n_ref = torch.linalg.vector_norm(g_ref, dim=-1)
-        scale = torch.maximum(n_ref, n_ref.median())
-        out["grad_gap"] = float((torch.linalg.vector_norm(g - g_ref, dim=-1) / scale).max())
+        out["grad_gap"] = block_gap(g[:, :3], g_ref[:, :3])
+        if g.shape[-1] > 3:
+            out["grad_gap_mt"] = block_gap(g[:, 3:], g_ref[:, 3:])
     return out
 
 
 def points(traffic: dict, units: list, outputs: list, seed: int):
     """The sample the reference compares, drawn from the seed over the
-    window's units: (models (n, 3) float64, the program's values (n,), and
-    its gradients (n, 3), or for a study the end points' converged flags (n,))."""
+    window's units: (models (n, nm) float64, the program's values (n,), and
+    its gradients (n, nm), or for a study the end points' converged flags (n,))."""
     rng = np.random.default_rng([seed % 2 ** 64, 2])
     chk = traffic["check"]
     picked = sample(rng, len(units), chk["units"])

@@ -172,7 +172,7 @@ def check(cell: Cell, inputs: Inputs, units, outputs, seed: int, dtype, device,
     study = cell.traffic["kind"] == "study"
     ms, v, g = compare.points(cell.traffic, [u for u, _ in done], [o for _, o in done], seed)
     if not study:
-        ms = ms.to(dtype).double()          # the locations as the program was handed them
+        ms = ms.to(dtype).double()          # the models as the program was handed them
     ms = ms.to(device)
     if candidate is not None and not study:
         v, g = candidate.value_and_grad(ms)

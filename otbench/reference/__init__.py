@@ -17,28 +17,42 @@ from otbench.reference.farfield import (
 )
 from otbench.reference.layered import layered_model_from_table, make_layered_forward
 
-__all__ = ["Reference", "moment_tensor_from_sdr"]
+__all__ = ["Reference", "moment_tensor_from_sdr", "mxyz_from_upper"]
+
+# the symmetric tensor's entries, row by row, as indices into the six upper
+# components (Mxx, Mxy, Mxz, Myy, Myz, Mzz)
+_UPPER_OF = (0, 1, 2, 1, 3, 4, 2, 4, 5)
 
 
-def forward_for(config: dict, stations: StationSet, mxyz: torch.Tensor):
-    """``forward(x, y, z) -> (k, nr, 3, nt)`` of the configuration's physics,
-    in the stations' dtype, differentiable by plain autograd (the f-k stack
-    algebra included)."""
+def mxyz_from_upper(upper: torch.Tensor) -> torch.Tensor:
+    """Symmetric moment tensors (..., 3, 3) from their six upper components
+    (..., 6) in row-major order (Mxx, Mxy, Mxz, Myy, Myz, Mzz)."""
+    return upper[..., list(_UPPER_OF)].reshape(*upper.shape[:-1], 3, 3)
+
+
+def forward_for(config: dict, stations: StationSet):
+    """``forward(x, y, z, mxyz) -> (k, nr, 3, nt)`` of the configuration's
+    physics for sources (k,) and a moment tensor (3, 3) or one per source
+    (k, 3, 3), in the stations' dtype, differentiable by plain autograd (the
+    f-k stack algebra included)."""
     nt, dt = config["nt"], config["dt"]
     if config["physics"] == "farfield":
         like = stations.x
         medium = MediumConfig(*(torch.tensor(config["medium"][k], dtype=like.dtype,
                                              device=like.device) for k in ("vp", "vs", "rho")))
-        return lambda x, y, z: synthetic_seismograms(x, y, z, mxyz, stations, nt=nt, dt=dt,
-                                                     medium=medium, fc=config["fc"])[1]
+        return lambda x, y, z, mxyz: synthetic_seismograms(
+            x, y, z, mxyz, stations, nt=nt, dt=dt, medium=medium, fc=config["fc"])[1]
     model = layered_model_from_table(config["layers"], device=stations.x.device)
-    fwd = make_layered_forward(stations, model=model, nt=nt, dt=dt, nk=config["nk"],
-                               kmax=config["kmax"])
-    return lambda x, y, z: fwd(x, y, z, mxyz)
+    return make_layered_forward(stations, model=model, nt=nt, dt=dt, nk=config["nk"],
+                                kmax=config["kmax"])
 
 
 class Reference:
-    """The misfit and its gradient for one seed's inputs in ``dtype``.
+    """The misfit and its gradient for one seed's inputs in ``dtype``, over
+    models (k, nm) of the configuration's ``invert``: the location (x, y, z),
+    then for "loc_cmt" the six upper components of the moment tensor (the
+    inputs' true one where the models hold none). Where the configuration
+    gives ``mscal``, a model is multiplied by it before anything else.
 
     The physics runs in float64 for the reference. For the control
     (``dtype`` bfloat16) the far-field physics runs in bfloat16 too; the f-k
@@ -56,23 +70,35 @@ class Reference:
             torch.float64 if dtype == torch.float64 else torch.float32)
         self.pdt = pdt
         stations = StationSet(inputs.sx.to(pdt), inputs.sy.to(pdt))
-        fwd = forward_for(config, stations, inputs.mxyz.to(pdt))
-        zmin = config["zmin_km"]
-        # the depth floor: the value at max(z, zmin), the gradient passed straight through
-        floor = lambda z: z - (z - torch.clamp_min(z, zmin)).detach()
-        self.forward = lambda x, y, z: fwd(x.to(pdt), y.to(pdt), floor(z.to(pdt))).to(dtype)
+        self.physics = forward_for(config, stations)
+        self.mxyz = inputs.mxyz.to(pdt)
+        mscal = config.get("mscal")
+        self.mscal = None if mscal is None else torch.tensor(mscal, dtype=pdt,
+                                                             device=inputs.loc.device)
         loc = inputs.loc.to(pdt)
         with torch.no_grad():
-            s = self.forward(loc[:1], loc[1:2], loc[2:3])[0].to(dtype)
+            s = self.physics(loc[:1], loc[1:2], self.floor(loc[2:3]), self.mxyz)[0].to(dtype)
         obs = s + config["noise"] * s.abs().max() * inputs.noise.to(dtype)
         self.obs = _misfit.observe(obs, config, dtype)
 
+    def floor(self, z):
+        """The depth floor: the value at max(z, zmin), the gradient passed
+        straight through."""
+        return z - (z - torch.clamp_min(z, self.config["zmin_km"])).detach()
+
+    def forward(self, ms: torch.Tensor):
+        """Seismograms (k, nr, 3, nt) in ``dtype`` of models ms (k, nm)."""
+        ms = ms.to(self.pdt)
+        if self.mscal is not None:
+            ms = ms * self.mscal
+        mxyz = self.mxyz if ms.shape[-1] == 3 else mxyz_from_upper(ms[:, 3:])
+        return self.physics(ms[:, 0], ms[:, 1], self.floor(ms[:, 2]), mxyz).to(self.dtype)
+
     def value_and_grad(self, ms: torch.Tensor):
-        """(misfits (k,), gradients (k, 3)) at locations ms (k, 3), in blocks."""
+        """(misfits (k,), gradients (k, nm)) at models ms (k, nm), in blocks."""
         return _misfit.value_and_grad(self.forward, self.obs, self.config,
                                       ms.to(self.pdt), self.block)
 
     def misfit(self, ms: torch.Tensor):
-        """Misfits (k,) of ms (k, 3), differentiable, one batch."""
-        ms = ms.to(self.pdt)
-        return _misfit.misfit(self.forward(ms[:, 0], ms[:, 1], ms[:, 2]), self.obs, self.config)
+        """Misfits (k,) of models ms (k, nm), differentiable, one batch."""
+        return _misfit.misfit(self.forward(ms), self.obs, self.config)

@@ -1,4 +1,4 @@
-"""The plain reference of the loc-only W2 misfit and its gradient.
+"""The plain reference of the W2 misfit and its gradient.
 
 A straightforward implementation of the chain the port runs, written from
 its definition (Sambridge, Jackson & Valentine 2022, sections 2-4):
@@ -137,13 +137,13 @@ def misfit(s, obs: Observed, cfg: dict):
 
 
 def value_and_grad(forward: Callable, obs: Observed, cfg: dict, ms, block: int):
-    """(misfits (k,), gradients (k, 3)) at source locations ms (k, 3) in
-    blocks of ``block`` models; ``forward(x, y, z)`` gives (k, nr, 3, nt)."""
+    """(misfits (k,), gradients (k, nm)) at source models ms (k, nm) in
+    blocks of ``block`` models; ``forward(ms)`` gives (k, nr, 3, nt)."""
     vals, grads = [], []
     for b in range(0, ms.shape[0], block):
         m = ms[b:b + block].detach().clone().requires_grad_(True)
         with torch.enable_grad():
-            v = misfit(forward(m[:, 0], m[:, 1], m[:, 2]), obs, cfg)
+            v = misfit(forward(m), obs, cfg)
             (g,) = torch.autograd.grad(v.sum(), m)
         vals.append(v.detach())
         grads.append(g)

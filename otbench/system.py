@@ -7,6 +7,10 @@ plus the seed's noise. :meth:`System.run` takes one unit's inputs (host
 arrays from :mod:`otbench.generator`) and returns its outputs as tensors
 on the device, without waiting for them. This is the only module of the
 benchmark that imports the port.
+
+The configuration's ``invert`` picks the parameters (:data:`otbench.generator.LAYOUTS`):
+"loc_cmt" inverts the moment tensor with the location (``InvOptions(cmt=True)``).
+Its ``mscal``, where given, preconditions the parameters (``precon``).
 """
 
 from __future__ import annotations
@@ -14,9 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from otbench import generator
 from waveform_ot_torch.inversion import (
     InvOptions, TraceConfig, build_loc_cmt_problem, layered_misfit_grid, loc_cmt_misfit,
-    loc_cmt_value_and_grad, minimize_multi_start,
+    loc_cmt_value_and_grad, minimize_lbfgs_batched_host, minimize_multi_start,
 )
 from waveform_ot_torch.models import (
     MediumConfig, StationSet, layered_model_from_table, make_layered_forward,
@@ -48,7 +53,10 @@ class System:
         nt, dt = config["nt"], config["dt"]
         stations = StationSet(x=arr(inputs.sx), y=arr(inputs.sy))
         mxyz, loc = arr(inputs.mxyz), arr(inputs.loc)
-        self.opts = InvOptions(loc=True, cmt=False, mistype="OT", zmin=config["zmin_km"])
+        self.nm = generator.n_params(config)
+        mscal = config.get("mscal")
+        self.opts = InvOptions(loc=True, cmt=self.nm == 9, mistype="OT", zmin=config["zmin_km"],
+                               precon=mscal is not None)
         self.forward = self.stages = None
         far = {}
         if config["physics"] == "farfield":
@@ -69,6 +77,7 @@ class System:
                                q=None, p=2)
         t = dt * torch.arange(nt, dtype=dtype, device=self.device)
         self.prob = build_loc_cmt_problem(t, obs, stations, self.cfg, mxyz_fixed=mxyz,
+                                          mscal=None if mscal is None else arr(mscal),
                                           pad=config["window_pad"], **far)
         self.objective = Counted(
             lambda ms: loc_cmt_misfit(ms, self.prob, self.opts, self.cfg, forward=self.forward))
@@ -84,25 +93,29 @@ class System:
                 xy = np.stack(np.meshgrid(unit["x"], unit["y"], indexing="ij"), -1).reshape(-1, 2)
                 v, g = layered_misfit_grid(self.tensor(unit["z"]), self.tensor(xy), self.prob,
                                            self.opts, self.cfg, self.stages)
-                return {"value": v.reshape(-1), "grad": g.reshape(-1, 3)}
+                return {"value": v.reshape(-1), "grad": g.reshape(-1, self.nm)}
             v, g = loc_cmt_value_and_grad(self.tensor(unit["nodes"]), self.prob, self.opts, self.cfg)
             return {"value": v, "grad": g}
         if kind == "calls":
             v, g = loc_cmt_value_and_grad(self.tensor(unit["m"]), self.prob, self.opts, self.cfg,
                                           forward=self.forward)
-            return {"value": v.reshape(1), "grad": g.reshape(1, 3)}
+            return {"value": v.reshape(1), "grad": g.reshape(1, self.nm)}
         if kind == "study":
             return solve(self.traffic, self.objective, self.tensor(unit["starts"]))
         raise ValueError(f"unknown traffic kind {kind!r}")
 
 
 def solve(traffic: dict, objective, starts: torch.Tensor) -> dict:
-    """One multi-start study of ``objective`` from ``starts`` (k, 3) by the
-    on-device batched L-BFGS: end points, their misfits, and 1 where the
-    solver reports the lane converged (gradient norm under tol, no failed
-    line search), else 0."""
-    res = minimize_multi_start(objective, starts, max_iter=traffic["max_iter"],
-                               tol=traffic["tol"])
+    """One multi-start study of ``objective`` from ``starts`` (k, nm) by the
+    mix's solver, the on-device batched L-BFGS or the host one: end points,
+    their misfits, and 1 where the solver reports the lane converged
+    (gradient norm under tol, no failed line search), else 0."""
+    if generator.solver(traffic) == "host":
+        res = minimize_lbfgs_batched_host(objective, starts, max_iter=traffic["max_iter"],
+                                          tol=traffic["tol"], ls_max=traffic["ls_max"])
+    else:
+        res = minimize_multi_start(objective, starts, max_iter=traffic["max_iter"],
+                                   tol=traffic["tol"])
     x, fun, gn, failed = (torch.as_tensor(v, device=starts.device)
                           for v in (res.x, res.fun, res.grad_norm, res.ls_failed))
     converged = (~failed.bool()) & (gn < traffic["tol"])

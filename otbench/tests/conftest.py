@@ -38,6 +38,25 @@ def tiny_cell(name: str):
     return cell
 
 
+# the joint location + moment-tensor layout: 60 km for the location and the
+# largest component of the true moment tensor (30/60/45, M0 5e6) for the six
+MSCAL = [60.0] * 3 + [3.4171e6] * 6
+JOINT_LIMITS = {"value_gap": 2e-3, "grad_gap": 0.05, "grad_gap_mt": 0.05}
+
+
+def joint_cell(config_of: str):
+    """A tiny calls cell over the tiny configuration of the cell ``config_of``
+    inverting the moment tensor too (``invert`` "loc_cmt", ``mscal``), its
+    moment tensors drawn within 30% of the true one, held to the location
+    cells' limits with grad_gap_mt beside grad_gap."""
+    cell = tiny_cell("layered.calls")
+    cell.name = f"{config_of.split('.')[0]}.joint"
+    cell.config = {**tiny_cell(config_of).config, "invert": "loc_cmt", "mscal": MSCAL}
+    cell.traffic["mt_spread"] = 0.3
+    cell.limits = dict(JOINT_LIMITS)
+    return cell
+
+
 @pytest.fixture
 def card():
     """Skips the test unless torch sees a CUDA card (decided here, at run time)."""

@@ -9,10 +9,10 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from conftest import tiny_cell
+from conftest import joint_cell, tiny_cell
 
-from otbench import calibrate, harness
-from otbench.reference import Reference
+from otbench import calibrate, generator, harness, system
+from otbench.reference import Reference, mxyz_from_upper
 from otbench.reference import farfield as ref_far
 from otbench.reference import layered as ref_lay
 from otbench.reference import misfit as ref_mis
@@ -21,6 +21,7 @@ from waveform_ot_torch.models import (
     MediumConfig, StationSet, layered_model_from_table, make_layered_forward,
     synthetic_seismograms,
 )
+from waveform_ot_torch.models import seismo as port_seismo
 from waveform_ot_torch.ops.fingerprint import distance_field_torch
 from waveform_ot_torch.ops.wasser import wasserstein_1d
 
@@ -101,16 +102,36 @@ def test_plain_distance_and_w2_are_the_ports():
     torch.testing.assert_close(gw, gp, rtol=1e-9, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", ["farfield.scan", "layered.calls"])
+def test_upper_components_are_the_ports():
+    u = torch.arange(12, dtype=F64).reshape(2, 6) - 5.0
+    torch.testing.assert_close(mxyz_from_upper(u), port_seismo.mxyz_from_upper(u), rtol=0, atol=0)
+    assert torch.equal(mxyz_from_upper(u), mxyz_from_upper(u).transpose(-1, -2))
+
+
+# the joint cells and the cells whose configurations they take
+JOINTS = {"farfield.joint": "farfield.scan", "layered.joint": "layered.calls"}
+
+
+def _cell(name):
+    return joint_cell(JOINTS[name]) if name in JOINTS else tiny_cell(name)
+
+
+@pytest.mark.parametrize("name", ["farfield.scan", "layered.calls", *JOINTS])
 def test_reference_is_the_port_in_float64(name):
-    """The whole chain, value and gradient, port vs reference, both float64."""
-    cell = tiny_cell(name)
+    """The whole chain, value and gradient, port vs reference, both float64;
+    for a joint configuration over all nine parameters, preconditioned."""
+    cell = _cell(name)
     cell.config["dtype"] = "float64"
     inputs = harness.make_inputs(cell.config, SEED, "cpu")
     system = System(cell.config, cell.traffic, inputs, "cpu")
     ms = torch.tensor([[2.5, -1.0, 11.0], [-1.0, 2.0, 13.5], [4.0, -4.0, 9.0]], dtype=F64)
+    if name in JOINTS:
+        mt = torch.as_tensor(generator.true_moment_upper(cell.config))
+        ms = torch.cat([ms, mt * torch.tensor([[1.2], [0.9], [0.75]], dtype=F64)], 1)
+        ms = ms / torch.tensor(cell.config["mscal"], dtype=F64)
     system.traffic = {"kind": "calls"}
     got = [system.run({"m": m.numpy()}) for m in ms]
+    assert got[0]["grad"].shape == (1, ms.shape[1])
     v = torch.cat([o["value"] for o in got])
     g = torch.cat([o["grad"] for o in got])
     v_ref, g_ref = Reference(cell.config, inputs).value_and_grad(ms)
@@ -119,11 +140,12 @@ def test_reference_is_the_port_in_float64(name):
 
 
 @pytest.mark.parametrize("name", ["farfield.scan", "layered.scan", "farfield.study",
-                                  "layered.calls"])
+                                  "layered.calls", "layered.study", *JOINTS])
 def test_program_passes_and_control_fails(name):
     """At test size: the float32 program within the cell's limits, the
-    bfloat16 control outside at least one."""
-    cell = tiny_cell(name)
+    bfloat16 control outside at least one; a joint configuration's calls
+    within the location cells' limits and grad_gap_mt's."""
+    cell = _cell(name)
     for seed in (SEED, SEED + 1):
         prog = calibrate.readings(cell, seed, cell.traffic["check"]["units"], "cpu", False)
         assert harness.compare.judge(prog, cell.limits), prog
@@ -186,21 +208,56 @@ class _Unchanged(System):
         return out
 
 
+class _MomentAltered(System):
+    """Every answer's moment-tensor gradient negated where it is produced:
+    the location block, which grad_gap reads, stays sound."""
+
+    def run(self, unit):
+        out = super().run(unit)
+        out["grad"] = torch.cat([out["grad"][:, :3], -out["grad"][:, 3:]], 1)
+        return out
+
+
 FAULTS = [("farfield.scan", _HalfTraces), ("layered.calls", _HalfTraces),
           ("farfield.scan", _AlteredAnswer), ("layered.calls", _AlteredAnswer),
           ("farfield.study", _AlteredAnswer), ("farfield.study", _Unchanged),
-          ("farfield.study", _HalfLanesFrozen)]
+          ("farfield.study", _HalfLanesFrozen), ("layered.study", _AlteredAnswer),
+          ("layered.study", _Unchanged), ("layered.study", _HalfLanesFrozen),
+          ("layered.joint", _HalfTraces), ("layered.joint", _MomentAltered)]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS, ids=[f"{n}-{f.__name__}" for n, f in FAULTS])
 def test_broken_timed_path_is_not_correct(name, fault):
-    sound, _ = harness.run(name, SEED, 0.3, False, device="cpu", cell=tiny_cell(name),
+    sound, _ = harness.run(name, SEED, 0.3, False, device="cpu", cell=_cell(name),
                            log=lambda s: None)
     assert sound["correct"], sound["checks"]
-    broken, lines = harness.run(name, SEED, 0.3, False, device="cpu", cell=tiny_cell(name),
+    broken, lines = harness.run(name, SEED, 0.3, False, device="cpu", cell=_cell(name),
                                 system_factory=fault, log=lambda s: None)
     assert broken["correct"] is False, broken["checks"]
-    assert list(broken)[-1] == "checks" and len(lines) == len(tiny_cell(name).limits)
+    assert list(broken)[-1] == "checks" and len(lines) == len(_cell(name).limits)
+
+
+@pytest.mark.parametrize("name,solver", [("farfield.study", "minimize_multi_start"),
+                                         ("layered.study", "minimize_lbfgs_batched_host")])
+def test_study_runs_its_mixs_solver(name, solver, monkeypatch):
+    """A study mix without ``solver`` runs the on-device L-BFGS as before,
+    ``solver`` "host" the host one, and either run comes out correct."""
+    called = []
+    real = getattr(system, solver)
+    monkeypatch.setattr(system, solver, lambda *a, **k: called.append(k) or real(*a, **k))
+    res, _ = harness.run(name, SEED + 2, 0.3, False, device="cpu", cell=tiny_cell(name),
+                         log=lambda s: None)
+    assert res["correct"], res["checks"]
+    assert len(called) == res["attempted"] + 1 and called[0]["max_iter"] == 60
+    assert called[0].get("ls_max", 8) == 8
+
+
+def test_joint_scan_raises():
+    cell = joint_cell("layered.scan")
+    cell.traffic = tiny_cell("layered.scan").traffic
+    with pytest.raises(ValueError, match="location only"):
+        harness.run("layered.scan", SEED, 0.3, False, device="cpu", cell=cell,
+                    log=lambda s: None)
 
 
 def test_trace_run_reports_per_layer_metrics_only():
