@@ -34,11 +34,18 @@ every call: while a graph of the same shapes has not been replayed yet, a
 new key runs eagerly and captures only if it comes again. At most
 :data:`MAX_GRAPHS` graphs are kept, each with its own memory pool, the
 least recently used dropped first.
+
+Each graph's kernel nodes are counted once, at capture, from the graph the
+capture recorded (the CUDA driver's ``cuGraphGetNodes`` and
+``cuGraphNodeGetType``), and kept beside the number of its model's
+parameters (:func:`graphs`); a replay counts nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import threading
 from collections import OrderedDict
 from typing import Callable
@@ -61,6 +68,7 @@ _GRAPHS: OrderedDict = OrderedDict()   # key -> _Graph, least recently used firs
 _SEEN: OrderedDict = OrderedDict()     # key -> None
 _STREAMS: dict = {}                    # device -> the side stream of warm-up and capture
 _PLAIN = (type(None), bool, int, float, str)
+_KERNEL_NODE = 0                       # CU_GRAPH_NODE_TYPE_KERNEL
 
 
 @dataclasses.dataclass
@@ -70,9 +78,19 @@ class _Graph:
     value: torch.Tensor     # the static outputs
     grad: torch.Tensor
     launches: int           # distance-field launches the graph holds
+    kernels: int            # kernel nodes the graph holds
     shapes: tuple           # the key without the addresses
     forward: Callable | None   # held, so that its id in the key stays its own
     replays: int = 0
+
+
+def graphs() -> list[dict]:
+    """The graphs held, least recently used first: each one's number of
+    model parameters (``params``), the kernel nodes it holds (``kernels``,
+    counted at capture) and its ``replays``."""
+    with _LOCK:
+        return [{"params": g.ms.shape[-1], "kernels": g.kernels, "replays": g.replays}
+                for g in _GRAPHS.values()]
 
 
 def engages(ms) -> bool:
@@ -164,18 +182,54 @@ def _capture(fn, k, ms, prob, opts, cfg, forward):
             t.record_stream(here)
         static = ms.detach().clone()
         before = cuda_distance.LAUNCHES_BY_DEVICE.get(str(device), 0)
-        graph = torch.cuda.CUDAGraph()
+        # kept, so that its nodes can be counted before it is instantiated
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, stream=side):
             out = fn(static, prob, opts, cfg, forward)
         # a capture records the launches and runs none of them
         held = cuda_distance.LAUNCHES_BY_DEVICE.get(str(device), 0) - before
         cuda_distance.count_launch(device, -held)
-    _GRAPHS[k] = _Graph(graph, static, *out, launches=held, shapes=k[0], forward=forward)
+        kernels = kernel_nodes(graph)
+        graph.instantiate()
+    _GRAPHS[k] = _Graph(graph, static, *out, launches=held, kernels=kernels, shapes=k[0],
+                        forward=forward)
     while len(_GRAPHS) > MAX_GRAPHS:
         _GRAPHS.popitem(last=False)
     CALLS["captures"] += 1
     CALLS["eager"] += 1
     return value, grad
+
+
+@functools.cache
+def _driver():
+    """The CUDA driver library, with the prototypes of the calls used here."""
+    drv = ctypes.CDLL("libcuda.so.1")
+    drv.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    drv.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    drv.cuGraphGetNodes.restype = drv.cuGraphNodeGetType.restype = ctypes.c_int
+    return drv
+
+
+def _check(status: int, call: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{call} failed with CUresult {status}")
+
+
+def kernel_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The kernel nodes of ``graph``, captured with ``keep_graph=True``: a
+    stream capture records each kernel launch as one."""
+    drv = _driver()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _check(drv.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(drv.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, count = ctypes.c_int(), 0
+    for node in nodes[:n.value]:
+        _check(drv.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        count += kind.value == _KERNEL_NODE
+    return count
 
 
 def clear() -> None:
