@@ -40,14 +40,25 @@ is non-zero:
                 recorded by an InversionTrace: within 0.02 of the truth and
                 within 1e-6 of the same inversion on the CPU, in as many
                 iterations;
-  9. layered    the bench's Figs 9-11 physics (build_layered_problem): W2
+  9. layered    first the stage-A kernel alone (stage_a_phase): at the
+                cells' quadrature (Fukuoka, nk 1024, kmax 2.5) and 1, 4 and
+                64 sources with the tangent, one launch held against the
+                plain _surface_operator on its card inputs (check_stage_a:
+                vs and rho bit for bit, the well-conditioned fields within 16
+                ulps, the P-SV fields by their error against the recursion in
+                long double, at most 4x the plain version's), its device
+                time, the plain version's, its bound and share. Then
+                the bench's Figs 9-11 physics (build_layered_problem): W2
                 misfit + gradient through the six-layer Fukuoka f-k forward,
                 11 stations x 3 components, nk 512, float32 on the card,
                 through exactly one kernel launch, against float64 on the CPU
                 (seismograms within 1e-4 of the peak, value within 1e-3,
                 gradient direction cosine > 0.97 and norm ratio in (0.5, 2)),
                 and float64 on the card against float64 on the CPU; host-clock
-                median of 20 calls;
+                median of 20 calls. In phases 9-11 every stage-A launch
+                outside the timing runs is held the same way (held_stage_a)
+                and counted: one per stage-A call, one per batched
+                evaluation of the study;
  10. layered_scan  values and (x, y, z) gradients at the 21x21x4 = 1,764
                 scan nodes through the layered physics in one call
                 (layered_misfit_grid) and one kernel launch; one node per
@@ -192,7 +203,11 @@ is non-zero:
                 tensors, bit for bit on their device. Every launch held bit
                 for bit (held_launches).
 
-The line before the last is the kernels' JSON record; the last line is
+In phases 13-17 and 19 held_launches holds every stage-A launch as phases
+9-11 do, and every stage-A launch the phase counts must have been held or
+recorded by a CUDA graph capture; phase 18's bench runs in processes of its
+own, where nothing is held. The line before the last is the kernels'
+JSON record (the distance field, then the stage-A kernel); the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
 printing any result.
 """
@@ -410,6 +425,46 @@ SURFACE_TIMED = 5
 # part by rounding only, unless a gradient component is near 0, which none of
 # these is (the smallest is ~5% of the largest)
 ENTRY_M1_RTOL = 1e-5
+# the stage-A kernel (csrc/surface_operator.cu, through layered._KernelStageA,
+# its one caller): every launch is held against the plain _surface_operator on
+# the same card inputs at tests/test_torch_stage_a.py's bars. The source
+# layer's vs and rho bit for bit; the well-conditioned fields (ga, gb, chi, the
+# SH scalars and their tangents) within STAGE_A_ULPS of each field's largest
+# entry; the P-SV fields (W2, RA2, RB2, inner2 and their tangents), which the
+# low-frequency lanes' recursion parts from the exact answer by as much in both
+# versions, by their error against the recursion in long double
+# (tests/ld_surface.py): at most STAGE_A_ACCURACY times the plain version's
+# own, plus 64 ulps, per lane, over all its wavenumbers (a lane's largest error
+# over a sample of them is too noisy for the bar: up to 5.4x at every 16th in a
+# host build of the kernel, against 2.1x over all). The long-double recursion
+# takes ~1.5 s per source at nk 1024 on the host, and the examples and drivers
+# make hundreds of launches, so it holds one source of a launch, in turn: the
+# first STAGE_A_LD_FIRST launches of each (phase, K, nf, nk, tangent) and every
+# STAGE_A_LD_EVERY-th after. Every launch gets the other checks.
+STAGE_A_ULPS = 16
+STAGE_A_ACCURACY = 4.0
+STAGE_A_LD_FIRST, STAGE_A_LD_EVERY = 4, 16
+STAGE_A_SMOOTH = ("ga", "gb", "chi", "Wsh", "RAsh", "RBsh", "innersh")
+STAGE_A_PSV = ("W2", "RA2", "RB2", "inner2")
+# the kernel timed at the cells' quadrature (otbench/configs/fukuoka11.json) and
+# the main path's source counts: one (the single-model calls), 4 (the scan's
+# depths), 64 (the batched study's lanes), with the tangent
+STAGE_A_NK, STAGE_A_KMAX = 1024, 2.5
+STAGE_A_SOURCES = {"calls": 1, "scan": 4, "study": 64}
+# The bound counts the kernel's float64 operations per point at the peak the
+# distance field's bound takes (PEAK_OPS), and the outputs written once at
+# HBM3's rate (the inputs are a few kB). Operations, counted from the source
+# with a complex add as 2, a complex product as 6 and Smith's quotient as 10
+# (a real division, sqrt, exp, sin and cos as 1 each): a layer's material 31,
+# an interface (two layers' blocks, the P-SV and SH R/T and their compositions
+# into a stack) 1,878, a layer phase 134, the receiver map 751, the tangent
+# 416, and 6 for omega^2. Each point evaluates 2 nlay + 2 layers, every
+# interface once and about nlay phases (one fewer where a source sits on an
+# interface or at the surface).
+STAGE_A_OPS = {"layer": 31, "interface": 1878, "phase": 134, "receiver": 751,
+               "tangent": 416, "omega": 6}
+STAGE_A_BYTES = {False: 368, True: 688}    # outputs per point, without and with the tangent
+STAGE_A_HELD: dict = {}                    # stage-A launches held, by phase
 
 
 def build_loc64_problem(nr: int, dtype, device):
@@ -618,6 +673,171 @@ def kernel_bound(verts, tgrid, ugrid) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def stage_a_bound(nsrc: int, nf: int, nk: int, nlay: int, tangent: bool) -> tuple[float, str]:
+    """(least time in ms, "operations" or "bytes") for one launch of the
+    stage-A kernel on these sizes: STAGE_A_OPS per point at the float64
+    peak, or the outputs written once at the HBM rate, whichever is
+    longer."""
+    o = STAGE_A_OPS
+    per_point = (o["omega"] + (2 * nlay + 2) * o["layer"] + (nlay - 1) * o["interface"]
+                 + nlay * o["phase"] + o["receiver"] + (o["tangent"] if tangent else 0))
+    points = nsrc * nf * nk
+    ops_ms = points * per_point / PEAK_OPS[torch.float64] * 1e3
+    bytes_ms = points * STAGE_A_BYTES[bool(tangent)] / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_stage_a(out, z, model, grid, free_surface, tangent,
+                  turn: int | None) -> tuple[float, float]:
+    """One launch of the stage-A kernel (``out``, the fields in
+    ``_KernelStageA.forward``'s order) held against the plain
+    ``_surface_operator`` on the same card inputs at the bars above the
+    STAGE_A_ constants: every field finite, vs and rho bit for bit, the
+    well-conditioned fields in ulps, and, unless ``turn`` is None, the P-SV
+    fields of source ``turn`` mod K against the long-double recursion.
+    Raises, else returns (the well-conditioned fields' largest deviation in
+    ulps, the P-SV fields' largest error over the plain version's, per
+    lane, or 0.0 unchecked)."""
+    import ld_surface
+    from waveform_ot_torch.models import layered as TL
+
+    names = TL._Reverb._fields + TL._SourceLayer._fields
+    names += tuple("d" + n for n in TL._Reverb._fields) if tangent else ()
+    got = dict(zip(names, out))
+    with torch.no_grad():
+        op, dop = TL._surface_operator(model, z, grid, free_surface, tangent)
+    want = dict(zip(TL._Reverb._fields, op.rev))
+    want.update(zip(TL._SourceLayer._fields, op.src))
+    want.update(("d" + n, v) for n, v in zip(TL._Reverb._fields, dop or ()))
+    want = {n: w.expand(got[n].shape) for n, w in want.items()}
+    eps = torch.finfo(torch.float64).eps
+    for n, v in got.items():
+        if not bool(torch.isfinite(torch.view_as_real(v) if v.is_complex() else v).all()):
+            raise AssertionError(f"stage A: the kernel's {n} is not finite")
+    for n in ("vs", "rho"):
+        if not torch.equal(got[n], want[n]):
+            raise AssertionError(f"stage A: the kernel's {n} differs from the plain version's")
+    smooth = STAGE_A_SMOOTH + (("dWsh", "dRAsh", "dRBsh") if tangent else ())
+    scales = {n: want[n].abs().max() for n in smooth}
+    if tangent:   # d(innersh)/dz is 0 in exact arithmetic: the scale of its terms
+        scales["dinnersh"] = (want["innersh"].abs() ** 2
+                              * (want["dRAsh"] * want["RBsh"]).abs()).max()
+    worst = 0.0
+    for n, scale in scales.items():
+        u = ((got[n] - want[n]).abs().max() / (scale * eps)).item() if scale > 0 else 0.0
+        if not u <= STAGE_A_ULPS:
+            raise AssertionError(f"stage A: the kernel's {n} is {u:.1f} ulps of its largest "
+                                 f"entry from the plain version's (bound {STAGE_A_ULPS})")
+        worst = max(worst, u)
+    ratio = 0.0
+    if turn is None:
+        return worst, ratio
+    j = turn % z.shape[0]
+    exact = ld_surface.surface_operator(
+        model, np.longdouble(z[j].item()), grid.k.cpu().numpy().astype(np.longdouble),
+        grid.om_c.cpu().numpy().astype(ld_surface.LD)[:, None], free_surface, tangent)
+    for n, w in exact.items():
+        scale = np.abs(w).max(axis=(-3, -2, -1))                  # per lane
+        scale = np.where(scale > 0, scale, 1.0)
+        err = lambda v: np.abs(v[j].cpu().numpy() - w).max(axis=(-3, -2, -1)) / scale
+        ours, theirs = err(got[n]), err(want[n])
+        if not (ours <= STAGE_A_ACCURACY * theirs + 64 * eps).all():
+            bad = np.flatnonzero(ours > STAGE_A_ACCURACY * theirs + 64 * eps)
+            raise AssertionError(f"stage A: the kernel's {n} at z {z[j].item()!r} is further "
+                                 f"from the long-double recursion than {STAGE_A_ACCURACY:g}x "
+                                 f"the plain version's on lanes {bad.tolist()}: "
+                                 f"{ours[bad].tolist()} against {theirs[bad].tolist()}")
+        ratio = max(ratio, float(np.max(ours / np.maximum(theirs, 64 * eps))))
+    return worst, ratio
+
+
+@contextlib.contextmanager
+def held_stage_a(phase: str):
+    """Every launch of the stage-A kernel inside the block, that is every
+    call of ``layered._KernelStageA.forward`` (the kernel's one caller),
+    held against the plain version on its card inputs (check_stage_a). A
+    launch recorded into a CUDA graph runs no kernel: it is counted as
+    "recorded" and not held, and a replay runs no Python. Yields {"shapes":
+    {(K, nf, nk, tangent): launches held}, "recorded", "counted"
+    (counted_stage_a's), "exact" (launches held against the long-double
+    recursion too), "ulps" and "ratio" (the worst of check_stage_a's two
+    readings), "check_s"}; on leaving,
+    STAGE_A_HELD[phase] gains the launches held."""
+    from waveform_ot_torch.models import layered as TL
+
+    real = TL._KernelStageA.__dict__["forward"]
+    held = {"shapes": {}, "recorded": 0, "counted": 0, "exact": 0, "ulps": 0.0,
+            "ratio": 0.0, "check_s": 0.0}
+    lock = threading.Lock()      # a mesh's per-device threads launch at once
+
+    def checked(z, model, grid, free_surface, tangent):
+        out = real.__func__(z, model, grid, free_surface, tangent)
+        if torch.cuda.is_current_stream_capturing():
+            with lock:
+                held["recorded"] += 1
+            return out
+        t0 = time.perf_counter()
+        key = (z.shape[0], grid.om_c.shape[0], grid.k.shape[0], bool(tangent))
+        with lock:
+            i = held["shapes"].get(key, 0)
+            held["shapes"][key] = i + 1
+        exact = i < STAGE_A_LD_FIRST or i % STAGE_A_LD_EVERY == 0
+        ulps, ratio = check_stage_a(out, z, model, grid, free_surface, tangent,
+                                    i if exact else None)
+        with lock:
+            held["exact"] += exact
+            held["ulps"], held["ratio"] = max(held["ulps"], ulps), max(held["ratio"], ratio)
+            held["check_s"] += time.perf_counter() - t0
+        return out
+
+    sys.path.insert(0, str(REPO / "tests"))      # ld_surface, the long-double recursion
+    TL._KernelStageA.forward = staticmethod(checked)
+    try:
+        yield held
+    finally:
+        setattr(TL._KernelStageA, "forward", real)
+        sys.path.remove(str(REPO / "tests"))
+        STAGE_A_HELD[phase] = STAGE_A_HELD.get(phase, 0) + sum(held["shapes"].values())
+
+
+def stage_a_report(tag: str, held: dict, counted: int) -> None:
+    """Print the stage-A holds of a block; raise unless every launch the
+    counter saw (``counted``) was held or recorded by a capture."""
+    n_held = sum(held["shapes"].values())
+    print(f"[{tag}] stage-A kernel launches held against the plain _surface_operator on their "
+          f"card inputs: {n_held}, and {held['recorded']} recorded by CUDA graph captures, of "
+          f"{counted} counted; by (K, nf, nk, tangent) {held['shapes']}; worst well-conditioned "
+          f"field {held['ulps']:.2f} ulps (bound {STAGE_A_ULPS}); P-SV fields of {held['exact']} "
+          f"launches against the long-double recursion, worst error {held['ratio']:.3f}x the "
+          f"plain version's (bound {STAGE_A_ACCURACY:g}x + 64 ulps); "
+          f"{held['check_s']:.2f} s of checks")
+    if n_held + held["recorded"] < counted:
+        raise AssertionError(f"{tag}: {counted - n_held - held['recorded']} of {counted} "
+                             f"stage-A launches went past the check")
+
+
+def counted_stage_a(fn, held: dict, calls: int | None, what: str):
+    """fn() with the stage-A kernel's counter set to 0 just before and read
+    just after: (result, launches run). Raises unless the counter equals
+    the launches run (held) and those a CUDA graph capture recorded, and,
+    where ``calls`` is given, unless one launch ran per band of ``calls``
+    stage-A calls (one band each here). ``held["counted"]`` sums the
+    counter's readings."""
+    from waveform_ot_torch.models import cuda_surface
+
+    torch.cuda.synchronize()
+    cuda_surface.LAUNCHES = 0
+    runs0, rec0 = sum(held["shapes"].values()), held["recorded"]
+    out = fn()
+    torch.cuda.synchronize()
+    runs, rec = sum(held["shapes"].values()) - runs0, held["recorded"] - rec0
+    held["counted"] += cuda_surface.LAUNCHES
+    if cuda_surface.LAUNCHES != runs + rec or calls is not None and runs != calls:
+        raise AssertionError(f"{what}: {runs} stage-A launches run and {rec} recorded, counter "
+                             f"{cuda_surface.LAUNCHES}; want {calls} run")
+    return out, runs
+
+
 def ptxas_by_variant(log: str) -> dict:
     """{(dtype, S): "N registers, ... spill ..."} from ptxas -v output of
     the distance-field library."""
@@ -674,9 +894,11 @@ def held_launches(phase: str):
     raises. A launch recorded into a CUDA graph runs no kernel and is not
     held; the launches its replays make are counted apart (a replay equals
     the eager call bit for bit, tests/test_torch_graph.py, and the first
-    call of each graph runs eagerly, held here). Yields {"shapes": {(B, nt,
-    nu, ntg, dtype): launches held}, "replayed": launches made by graph
-    replays, "check_s": host seconds the checks took}."""
+    call of each graph runs eagerly, held here). Every launch of the
+    stage-A kernel inside the block is held too (held_stage_a). Yields
+    {"shapes": {(B, nt, nu, ntg, dtype): launches held}, "replayed":
+    launches made by graph replays, "check_s": host seconds the checks
+    took, "stage_a": held_stage_a's record}."""
     from waveform_ot_torch.inversion import cuda_graph
     from waveform_ot_torch.ops import cuda_distance, distance_field_torch
 
@@ -706,7 +928,8 @@ def held_launches(phase: str):
 
     cuda_distance.distance_field_cuda, cuda_graph._replay = checked, replay
     try:
-        yield held
+        with held_stage_a(phase) as held["stage_a"]:
+            yield held
     finally:
         cuda_distance.distance_field_cuda, cuda_graph._replay = real, real_replay
 
@@ -714,23 +937,26 @@ def held_launches(phase: str):
 class PhaseChecks:
     """The counted, held and timed calls of a phase whose lines start with
     ``[tag]`` (phases 13 and 14). ``n_counted`` sums the launches of every
-    counted call, to be held against ``held_launches``' count."""
+    counted call, to be held against ``held_launches``' count, and
+    ``n_stage_a`` the stage-A kernel's."""
 
     def __init__(self, tag: str, card: str):
-        self.tag, self.card, self.n_counted = tag, card, 0
+        self.tag, self.card, self.n_counted, self.n_stage_a = tag, card, 0, 0
 
     def counted(self, fn, want=None, what=""):
         """fn() with the kernel's launch count set to 0 just before and read
         just after: (result, launches); raises unless launches == want, when
-        given."""
+        given. The stage-A kernel's launches are counted alike."""
+        from waveform_ot_torch.models import cuda_surface
         from waveform_ot_torch.ops import cuda_distance
 
         torch.cuda.synchronize()
-        cuda_distance.LAUNCHES = 0
+        cuda_distance.LAUNCHES = cuda_surface.LAUNCHES = 0
         out = fn()
         torch.cuda.synchronize()
         n = cuda_distance.LAUNCHES
         self.n_counted += n
+        self.n_stage_a += cuda_surface.LAUNCHES
         if want is not None and n != want:
             raise AssertionError(f"{what}: {n} kernel launches, not {want}")
         return out, n
@@ -770,6 +996,7 @@ class PhaseChecks:
             raise AssertionError(f"{self.n_counted - n_held - held['replayed']} of "
                                  f"{self.n_counted} counted "
                                  f"launches went past the check")
+        stage_a_report(self.tag, held["stage_a"], self.n_stage_a)
 
 
 def _rel(a, b) -> float:
@@ -779,8 +1006,10 @@ def _rel(a, b) -> float:
 
 
 def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
-    """Phases 9-11: the layered physics on the card. Returns the kernel
-    launches of each path; ``per_eval`` gains the study's per evaluation."""
+    """Phases 9-11: the layered physics on the card. Returns the
+    distance-field kernel's launches of each path, the stage-A kernel's,
+    and the stage-A kernel's per call (per batched evaluation of the
+    study); ``per_eval`` gains the distance field's per evaluation."""
     from waveform_ot_torch.inversion import (
         layered_misfit_grid, loc_cmt_misfit, loc_cmt_value_and_grad,
         minimize_lbfgs_batched_host,
@@ -788,31 +1017,41 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
     from waveform_ot_torch.ops import cuda_distance
 
     cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
-    launches = {}
+    launches, stage_a = {}, {}
     dm = torch.tensor(DM)
-    # 9. value and gradient at LOC + DM
+    # 9. value and gradient at LOC + DM; every stage-A launch of phases 9-11
+    # outside their timing runs held (held_stage_a) and counted, one per call
     loc, cfg, prob32, fwd32, stages32 = build_layered_problem(f32, dev)
     m32 = loc + dm.to(dev, f32)
-    torch.cuda.synchronize()
-    cuda_distance.LAUNCHES = 0
-    v32, g32 = loc_cmt_value_and_grad(m32, prob32, opts, cfg, forward=fwd32)
-    torch.cuda.synchronize()
-    launches["layered"] = cuda_distance.LAUNCHES
-    if launches["layered"] != 1:
-        raise AssertionError(f"layered value+grad launched the kernel "
-                             f"{launches['layered']} times, not once")
-    if not (bool(torch.isfinite(v32)) and bool(torch.isfinite(g32).all())):
-        raise AssertionError(f"non-finite layered result {v32} {g32}")
     res, built = {}, {}
-    for where, device in (("cpu", cpu), ("card", dev)):
-        locd, cfgd, probd, fwdd, stagesd = built[where] = build_layered_problem(f64, device)
-        md = locd + dm.to(device, f64)
+    with held_stage_a("layered") as held:
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        (v32, g32), stage_a["layered"] = counted_stage_a(
+            lambda: loc_cmt_value_and_grad(m32, prob32, opts, cfg, forward=fwd32), held, 1,
+            "layered value+grad f32")
+        launches["layered"] = cuda_distance.LAUNCHES
+        if launches["layered"] != 1:
+            raise AssertionError(f"layered value+grad launched the kernel "
+                                 f"{launches['layered']} times, not once")
+        if not (bool(torch.isfinite(v32)) and bool(torch.isfinite(g32).all())):
+            raise AssertionError(f"non-finite layered result {v32} {g32}")
+        for where, device in (("cpu", cpu), ("card", dev)):
+            locd, cfgd, probd, fwdd, stagesd = built[where] = build_layered_problem(f64, device)
+            md = locd + dm.to(device, f64)
+            calls = int(device.type == "cuda")
+            with torch.no_grad():
+                sd, _ = counted_stage_a(lambda: fwdd(md[0], md[1], md[2], probd.mxyz_fixed),
+                                        held, calls, f"layered forward f64 on the {where}")
+            vg, _ = counted_stage_a(lambda: loc_cmt_value_and_grad(md, probd, opts, cfgd,
+                                                                   forward=fwdd),
+                                    held, calls, f"layered value+grad f64 on the {where}")
+            res[where] = (sd, *vg)
         with torch.no_grad():
-            sd = fwdd(md[0], md[1], md[2], probd.mxyz_fixed)
-        res[where] = (sd, *loc_cmt_value_and_grad(md, probd, opts, cfgd, forward=fwdd))
+            s32, _ = counted_stage_a(lambda: fwd32(m32[0], m32[1], m32[2], prob32.mxyz_fixed),
+                                     held, 1, "layered forward f32")
+    stage_a_report("layered", held, held["counted"])
     s64, v64, g64 = res["cpu"]
-    with torch.no_grad():
-        s32 = fwd32(m32[0], m32[1], m32[2], prob32.mxyz_fixed)
     g32c, g64c = g32.double().cpu(), g64.cpu()
     dev_f32 = {"seis": _rel(s32, s64), "value": abs(v32.item() - v64.item()) / abs(v64.item()),
                "cos": (g32c @ g64c / (g32c.norm() * g64c.norm())).item(),
@@ -821,8 +1060,8 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
     dev_f64 = {"seis": _rel(s64d, s64), "value": abs(v64d.item() - v64.item()) / abs(v64.item()),
                "grad": _rel(g64d, g64)}
     print(f"[layered] f32 on {torch.cuda.get_device_name(0)}: value {v32.item()!r} grad "
-          f"{g32.tolist()}, kernel launches {launches['layered']}; f64 on cpu: value "
-          f"{v64.item()!r} grad {g64.tolist()}")
+          f"{g32.tolist()}, kernel launches {launches['layered']}, stage-A launches "
+          f"{stage_a['layered']}; f64 on cpu: value {v64.item()!r} grad {g64.tolist()}")
     print(f"[layered] f32-card vs f64-cpu: seismograms {dev_f32['seis']:.3e} of the peak "
           f"(bound {SEIS_TOL_F32:g}), value rel {dev_f32['value']:.3e} (bound "
           f"{LAYERED_VALUE_RTOL_F32:g}), gradient cosine {dev_f32['cos']:.6f} (bound > "
@@ -844,39 +1083,40 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
 
     # 10. the depth-amortized scan
     zs, xy = scan_axes(f32, dev)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    cuda_distance.LAUNCHES = 0
-    sv, sg = layered_misfit_grid(zs, xy, prob32, opts, cfg, stages32)
-    torch.cuda.synchronize()
-    launches["layered_scan"] = cuda_distance.LAUNCHES
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches["layered_scan"] != 1:
-        raise AssertionError(f"the layered scan launched the kernel "
-                             f"{launches['layered_scan']} times, not once")
-    if sv.shape != (4, len(xy)) or sg.shape != (4, len(xy), 3) or not (
-            bool(torch.isfinite(sv).all()) and bool(torch.isfinite(sg).all())):
-        raise AssertionError(f"layered scan result of shapes {sv.shape} {sg.shape} "
-                             f"is not finite")
-    scan_ms = host_median_ms(lambda: layered_misfit_grid(zs, xy, prob32, opts, cfg, stages32),
-                             n=STUDY_TIMED, warm=0)
-    print(f"[layered_scan] {sv.numel()} nodes x {NR_STUDY} stations x 3 = {3 * NR_STUDY * sv.numel()} "
-          f"traces, f32, values and gradients in one call: {scan_ms:.4f} ms per scan (host "
-          f"clock, synchronized, median of {STUDY_TIMED}); kernel launches "
-          f"{launches['layered_scan']}; peak device memory {peak_gb:.3f} GB {card}")
-    pick = np.random.default_rng(11).integers(0, len(xy), size=4)
-    worst_v = worst_g = 0.0
-    for iz, ixy in enumerate(pick):
-        node = torch.stack([xy[ixy, 0], xy[ixy, 1], zs[iz]])
-        v1, g1 = loc_cmt_value_and_grad(node, prob32, opts, cfg, forward=fwd32)
-        worst_v = max(worst_v, abs(sv[iz, ixy].item() - v1.item()) / abs(v1.item()))
-        worst_g = max(worst_g, _rel(sg[iz, ixy], g1))
     _, cfgd, probd, fwdd, stagesd = built["card"]
-    sub = xy[::147].double()
-    v64, g64 = layered_misfit_grid(zs.double(), sub, probd, opts, cfgd, stagesd)
-    nodes = torch.cat([torch.cat([sub, z.expand(len(sub), 1)], 1) for z in zs.double()[:, None]])
-    v1, g1 = loc_cmt_value_and_grad(nodes, probd, opts, cfgd, forward=fwdd)
+    with held_stage_a("layered_scan") as held:
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        (sv, sg), stage_a["layered_scan"] = counted_stage_a(
+            lambda: layered_misfit_grid(zs, xy, prob32, opts, cfg, stages32), held, 1,
+            "the layered scan")
+        launches["layered_scan"] = cuda_distance.LAUNCHES
+        if launches["layered_scan"] != 1:
+            raise AssertionError(f"the layered scan launched the kernel "
+                                 f"{launches['layered_scan']} times, not once")
+        if sv.shape != (4, len(xy)) or sg.shape != (4, len(xy), 3) or not (
+                bool(torch.isfinite(sv).all()) and bool(torch.isfinite(sg).all())):
+            raise AssertionError(f"layered scan result of shapes {sv.shape} {sg.shape} "
+                                 f"is not finite")
+        pick = np.random.default_rng(11).integers(0, len(xy), size=4)
+        worst_v = worst_g = 0.0
+        for iz, ixy in enumerate(pick):
+            node = torch.stack([xy[ixy, 0], xy[ixy, 1], zs[iz]])
+            (v1, g1), _ = counted_stage_a(
+                lambda: loc_cmt_value_and_grad(node, prob32, opts, cfg, forward=fwd32), held,
+                None, "a scan node alone (a graph replay or capture)")
+            worst_v = max(worst_v, abs(sv[iz, ixy].item() - v1.item()) / abs(v1.item()))
+            worst_g = max(worst_g, _rel(sg[iz, ixy], g1))
+        sub = xy[::147].double()
+        (v64, g64), _ = counted_stage_a(
+            lambda: layered_misfit_grid(zs.double(), sub, probd, opts, cfgd, stagesd), held, 1,
+            "the f64 sub-grid")
+        nodes = torch.cat([torch.cat([sub, z.expand(len(sub), 1)], 1)
+                           for z in zs.double()[:, None]])
+        (v1, g1), _ = counted_stage_a(
+            lambda: loc_cmt_value_and_grad(nodes, probd, opts, cfgd, forward=fwdd), held, 1,
+            "the f64 sub-grid's nodes")
+    stage_a_report("layered_scan", held, held["counted"])
     dev64 = max((v64.reshape(-1) - v1).abs().max().item() / v1.abs().max().item(),
                 _rel(g64.reshape(-1, 3), g1))
     print(f"[layered_scan] f32 nodes {pick.tolist()} (one per depth) vs the node alone: value "
@@ -885,6 +1125,16 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
           f"its nodes alone: {dev64:.3e} (bound {SCAN_TOL_F64:g})")
     if worst_v > SCAN_VALUE_RTOL_F32 or worst_g > SCAN_GRAD_TOL_F32 or dev64 > SCAN_TOL_F64:
         raise AssertionError("layered scan nodes deviate from the same nodes alone")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()      # over the timing runs, which hold nothing
+    scan_ms = host_median_ms(lambda: layered_misfit_grid(zs, xy, prob32, opts, cfg, stages32),
+                             n=STUDY_TIMED, warm=0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[layered_scan] {sv.numel()} nodes x {NR_STUDY} stations x 3 = {3 * NR_STUDY * sv.numel()} "
+          f"traces, f32, values and gradients in one call: {scan_ms:.4f} ms per scan (host "
+          f"clock, synchronized, median of {STUDY_TIMED}); kernel launches "
+          f"{launches['layered_scan']}, stage-A launches {stage_a['layered_scan']}; peak device "
+          f"memory {peak_gb:.3f} GB (over the timed scans) {card}")
     del sv, sg
     torch.cuda.empty_cache()
 
@@ -893,12 +1143,17 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
     misfit = lambda ms: loc_cmt_misfit(ms, prob32, opts, cfg, forward=fwd32)
     solve = lambda f: minimize_lbfgs_batched_host(f, starts, max_iter=25, tol=1e-4, ls_max=8)
     fun = CountedObjective(misfit)
-    torch.cuda.synchronize()
-    cuda_distance.LAUNCHES = 0
-    res = solve(fun)
-    torch.cuda.synchronize()
-    launches["layered_ms"] = cuda_distance.LAUNCHES
+    with held_stage_a("layered_ms") as held:
+        torch.cuda.synchronize()
+        cuda_distance.LAUNCHES = 0
+        res, stage_a["layered_ms"] = counted_stage_a(lambda: solve(fun), held, None,
+                                                     "the layered study")
+        launches["layered_ms"] = cuda_distance.LAUNCHES
+    stage_a_report("layered_ms", held, held["counted"])
     evals = fun.values + fun.value_grads
+    if stage_a["layered_ms"] != evals:
+        raise AssertionError(f"layered_ms: {stage_a['layered_ms']} stage-A launches for {evals} "
+                             f"batched evaluations")
     per_eval["layered_ms"] = launches["layered_ms"] / evals
     err = torch.linalg.vector_norm(res.x.double() - torch.tensor(LOC, dtype=f64, device=dev),
                                    dim=1)
@@ -917,7 +1172,66 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
     if not (share >= LAYERED_MS_SHARE and bool(torch.isfinite(err).all())):
         raise AssertionError(f"layered_ms: only {share:.0%} of starts within "
                              f"{LAYERED_MS_RADIUS_KM:g} km: {err.tolist()}")
-    return launches
+    per_call = {"layered": stage_a["layered"], "layered_scan": stage_a["layered_scan"],
+                "layered_ms": stage_a["layered_ms"] / evals}
+    return launches, stage_a, per_call
+
+
+def stage_a_phase(dev, card: str) -> list:
+    """Phase 9's start: the stage-A kernel alone at the cells' quadrature
+    (STAGE_A_NK, STAGE_A_KMAX, the Fukuoka model) and the main path's
+    source counts (STAGE_A_SOURCES), with the tangent: one launch held
+    against the plain version (check_stage_a, each source's long-double
+    check in turn over the counts), its device time, the plain version's,
+    the bound (stage_a_bound) and the share. Returns the rows."""
+    from waveform_ot_torch import _build
+    from waveform_ot_torch.models import cuda_surface
+    from waveform_ot_torch.models import layered as TL
+
+    model = TL.fukuoka_model(device=dev)
+    plan = TL._synth_plan(NT, 1.0, 2, ("clp_step", 0.05, 0.2), STAGE_A_NK, STAGE_A_KMAX,
+                          float("inf"))
+    (grid,) = [TL._band_grid(b, plan.k_np, 0.023, dev) for b in plan.bands]
+    t0 = time.perf_counter()
+    cuda_surface._library()
+    ptxas = "; ".join(line.split(":")[-1].strip()
+                      for line in _build.ptxas_log("surface_operator").splitlines()
+                      if "spill" in line or "Used" in line)
+    print(f"[stage_a] {_build.library_path('surface_operator').relative_to(REPO)} loaded in "
+          f"{time.perf_counter() - t0:.2f} s; ptxas -v: {ptxas}")
+    rows = []
+    sys.path.insert(0, str(REPO / "tests"))      # ld_surface, the long-double recursion
+    try:
+        for turn, (name, k) in enumerate(STAGE_A_SOURCES.items()):
+            z = torch.linspace(0.5, 45.0, k, dtype=torch.float64, device=dev) if k > 1 else \
+                torch.tensor([float(LOC[2])], dtype=torch.float64, device=dev)
+            args = (grid.k, grid.om_c, model.interfaces(), model.vp, model.vs, model.rho, z,
+                    True, True)
+            cuda_surface.LAUNCHES = 0
+            rev, src, drev = cuda_surface.surface_operator_cuda(*args)
+            torch.cuda.synchronize()
+            if cuda_surface.LAUNCHES != 1:
+                raise AssertionError(f"stage A at {k} sources: {cuda_surface.LAUNCHES} launches")
+            ulps, ratio = check_stage_a(rev + src + drev, z, model, grid, True, True, turn)
+            ms = device_ms(lambda: cuda_surface.surface_operator_cuda(*args),
+                           launches=BACK_TO_BACK, samples=SAMPLES)
+            plain = device_ms(lambda: TL._surface_operator(model, z, grid, True, True),
+                              launches=PLAIN_BACK_TO_BACK)
+            nf, nk = grid.om_c.shape[0], grid.k.shape[0]
+            bound, bound_by = stage_a_bound(k, nf, nk, model.nlayers, True)
+            rows.append({"shape": name, "sources": k, "nf": nf, "nk": nk, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+                         "share": bound / ms, "ulps": ulps, "accuracy_ratio": ratio})
+            print(f"[timing] stage A {name}: {k} sources x {nf} frequencies x {nk} wavenumbers, "
+                  f"tangent: kernel {ms:.6f} ms (device, {BACK_TO_BACK} back-to-back launches, "
+                  f"median of {SAMPLES}), bound {bound:.6f} ms ({bound_by}), share "
+                  f"{bound / ms:.4f}, plain {plain:.4f} ms ({PLAIN_BACK_TO_BACK} back-to-back "
+                  f"calls); against the plain version: well-conditioned fields {ulps:.2f} ulps "
+                  f"(bound {STAGE_A_ULPS}), P-SV error {ratio:.3f}x the plain version's (bound "
+                  f"{STAGE_A_ACCURACY:g}x + 64 ulps) {card}")
+    finally:
+        sys.path.remove(str(REPO / "tests"))
+    return rows
 
 
 def _nested_dev(got, ref) -> float:
@@ -2732,8 +3046,10 @@ def main() -> int:
     if x_err > RICKER_X_TOL or inv["card"].nit != inv["cpu"].nit:
         raise AssertionError("the Ricker inversion on the card parts from the CPU one")
 
-    # 9-11. the layered f-k physics
-    launches.update(layered_phases(dev, opts, card, per_eval))
+    # 9-11. the layered f-k physics, the stage-A kernel alone first
+    stage_a_rows = stage_a_phase(dev, card)
+    layered, stage_a_paths, stage_a_per_call = layered_phases(dev, opts, card, per_eval)
+    launches.update(layered)
 
     # 12. the OT and fingerprint toolbox through the compat layer
     toolbox, toolbox_per_call = toolbox_phase(dev, card)
@@ -2771,6 +3087,9 @@ def main() -> int:
     launches.update(surface)
 
     head = rows[0]                        # loc64 float32, the headline
+    stage_a_paths.update((f"held_{phase}", n) for phase, n in STAGE_A_HELD.items()
+                         if phase not in stage_a_paths)
+    calls = next(r for r in stage_a_rows if r["shape"] == "calls")
     print(json.dumps({"kernels": [{
         "name": "distance_field", "route": "cuda",
         "source": "waveform_ot_torch/csrc/distance_field.cu",
@@ -2786,6 +3105,16 @@ def main() -> int:
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "share": head["share"], "library_ms": None, "by_shape": rows,
+    }, {
+        "name": "surface_operator", "route": "cuda",
+        "source": "waveform_ot_torch/csrc/surface_operator.cu", "replaces": None,
+        "launches": sum(stage_a_paths.values()), "launches_by_path": stage_a_paths,
+        "launches_per_call": stage_a_per_call,
+        "max_ulps": max(r["ulps"] for r in stage_a_rows),
+        "accuracy_ratio": max(r["accuracy_ratio"] for r in stage_a_rows),
+        "bit_identical": False, "ms": calls["ms"], "plain_ms": calls["plain_ms"],
+        "bound_ms": calls["bound_ms"], "bound_by": calls["bound_by"], "share": calls["share"],
+        "library_ms": None, "by_shape": stage_a_rows,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,8 @@ from waveform_ot_torch.inversion import (
     InvOptions, LocCMTObjective, TraceConfig, cuda_graph, loc_cmt_value_and_grad,
 )
 from waveform_ot_torch.inversion.loc_cmt import _value_and_grad
+from waveform_ot_torch.models import cuda_surface, seismo
 from waveform_ot_torch.models import layered as TL
-from waveform_ot_torch.models import seismo
 from waveform_ot_torch.models.seismo import StationSet, upper_from_mxyz
 from waveform_ot_torch.ops import cuda_distance
 
@@ -453,12 +453,15 @@ def test_replay_equals_eager(fresh, deterministic, physics, dtype, layout):
     """Three models in a row (a capture, then replays) against eager calls
     (:func:`_assert_as_eager`). Each call's outputs keep their values after
     the next call, the launch counter advances by one per call, and the
-    graph is held with its parameter count and its kernel nodes."""
+    graph is held with its parameter count and its kernel nodes. The
+    layered forward's stage A is its kernel: one launch in each eager call
+    (the first call and the three references) and one the capture records."""
     loc, cfg, prob, fwd = _card_problem(physics, dtype)
     opts, prob, ms = _layout(layout, loc, prob)
     nm = ms[0].shape[0]
     kept = []
     calls = dict(cuda_graph.CALLS)
+    surface = cuda_surface.LAUNCHES
     for m in ms:
         before = cuda_distance.LAUNCHES
         got = loc_cmt_value_and_grad(m, prob, opts, cfg, forward=fwd)
@@ -471,6 +474,7 @@ def test_replay_equals_eager(fresh, deterministic, physics, dtype, layout):
     assert all(torch.equal(a, b) for got, snap in kept for a, b in zip(got, snap))
     assert {k: cuda_graph.CALLS[k] - calls[k] for k in calls} == {
         "captures": 1, "replays": 2, "eager": 1}
+    assert cuda_surface.LAUNCHES - surface == (5 if physics == "layered" else 0)
     (held,) = cuda_graph.graphs()
     assert held["params"] == nm and held["replays"] == 2 and held["kernels"] > 100
 

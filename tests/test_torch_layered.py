@@ -24,6 +24,7 @@ import pytest
 import torch
 from scipy import special
 
+import ld_surface
 from waveform_ot_torch import convert
 from waveform_ot_torch import inversion as ti
 from waveform_ot_torch import models as tm
@@ -351,73 +352,7 @@ def test_convert_layered_model():
     np.testing.assert_array_equal(model.interfaces().numpy(), np.asarray(jmodel.interfaces()))
 
 
-# -- the omega = 0 lane against a long-double solve (numpy clongdouble) --------
-
-LD = np.clongdouble
-
-
-def _ld_inv2(m):
-    det = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
-    out = np.stack([np.stack([m[..., 1, 1], -m[..., 0, 1]], -1),
-                    np.stack([-m[..., 1, 0], m[..., 0, 0]], -1)], -2)
-    return out / det[..., None, None]
-
-
-def _ld_blocks(k, om_c, vp, vs, rho):
-    sq = lambda z: np.where((z.imag == 0) & (z.real < 0), 1j * np.sqrt(-z.real), np.sqrt(z))
-    w2 = om_c * om_c
-    ga, gb = sq(w2 / (vp * vp) - k * k), sq(w2 / (vs * vs) - k * k)
-    mu, chi, ik = rho * vs * vs, 2 * k * k - w2 / (vs * vs), 1j * k
-    mat = lambda a, b, c, d: np.stack([np.stack(np.broadcast_arrays(a, b), -1),
-                                       np.stack(np.broadcast_arrays(c, d), -1)], -2)
-    return (mat(ik, -1j * gb, 1j * ga, ik), mat(ik, 1j * gb, -1j * ga, ik),
-            mat(mu * chi, -2 * mu * k * gb, -2 * mu * k * ga, -mu * chi),
-            mat(mu * chi, 2 * mu * k * gb, 2 * mu * k * ga, -mu * chi), ga, gb)
-
-
-def _ld_interface(b1, b2):
-    (ud1, uu1, sd1, su1), (ud2, uu2, sd2, su2) = b1[:4], b2[:4]
-    iud2, iuu1 = _ld_inv2(ud2), _ld_inv2(uu1)
-    rd = _ld_inv2(su1 - sd2 @ iud2 @ uu1) @ (sd2 @ iud2 @ ud1 - sd1)
-    ru = _ld_inv2(sd2 - su1 @ iuu1 @ ud2) @ (su1 @ iuu1 @ uu2 - su2)
-    return rd, iud2 @ (ud1 + uu1 @ rd), ru, iuu1 @ (uu2 + ud2 @ ru)
-
-
-def _ld_surface_operator(model, z, k, om_c):
-    """W2, RA2, RB2, inner2 of one frequency, the port's recursion in long
-    double, with the layers on each side of the source chosen in Python."""
-    th, vp, vs, rho = (np.asarray(v.numpy(), np.longdouble) for v in model)
-    iface = np.cumsum(th[:-1])
-    tops, zbot = np.concatenate([[0], iface]), np.concatenate([iface, [np.inf]])
-    blk = [_ld_blocks(k, om_c, vp[i], vs[i], rho[i]) for i in range(len(th))]
-    eye = np.broadcast_to(np.eye(2, dtype=LD), (len(k), 2, 2))
-
-    def compose(s1, s2):
-        x = _ld_inv2(eye - s1[2] @ s2[0])
-        y = eye + s2[0] @ x @ s1[2]
-        return (s1[0] + s1[3] @ s2[0] @ x @ s1[1], s2[1] @ x @ s1[1],
-                s2[2] + s2[1] @ s1[2] @ y @ s2[3], s1[3] @ y @ s2[3])
-
-    def phase(s, b, h):
-        e = np.stack([np.exp(1j * b[4] * h), np.exp(1j * b[5] * h)], -1)
-        return s[0], s[1] * e[..., :, None], s[2] * e[..., None, :] * e[..., :, None], \
-            s[3] * e[..., None, :]
-
-    sa = sb = (0 * eye, eye, 0 * eye, eye)
-    for i in range(len(th)):
-        if i > 0 and iface[i - 1] <= z:
-            sa = compose(sa, _ld_interface(blk[i - 1], blk[i]))
-        sa = phase(sa, blk[i], max(min(zbot[i], z) - tops[i], 0))
-    for i in range(len(th) - 1):
-        sb = phase(sb, blk[i], max(zbot[i] - max(tops[i], z), 0))
-        if iface[i] > z:
-            sb = compose(sb, _ld_interface(blk[i], blk[i + 1]))
-    rf = -_ld_inv2(blk[0][2]) @ blk[0][3]
-    rev = _ld_inv2(eye - sa[0] @ rf)
-    ra2 = sa[2] + sa[1] @ rf @ rev @ sa[3]
-    return {"W2": (blk[0][1] + blk[0][0] @ rf) @ rev @ sa[3], "RA2": ra2, "RB2": sb[0],
-            "inner2": _ld_inv2(eye - ra2 @ sb[0])}
-
+# -- the omega = 0 lane against a long-double solve (ld_surface.py) -------------
 
 @pytest.mark.parametrize("zi", range(len(LANE_DEPTHS)), ids=[f"z{z:g}" for z in LANE_DEPTHS])
 def test_omega0_lane_as_accurate_as_jax(setup, zi):
@@ -433,8 +368,9 @@ def test_omega0_lane_as_accurate_as_jax(setup, zi):
     op, _ = TL._surface_operator(model, torch.tensor([z], dtype=F64),
                                  TL._band_grid(band, plan.k_np, 0.023, CPU), True, False)
     for lane in range(2):
-        exact = _ld_surface_operator(model, np.longdouble(z), plan.k_np.astype(np.longdouble),
-                                     LD(complex(band.om[lane], 0.023)))
+        exact = ld_surface.surface_operator(model, np.longdouble(z),
+                                            plan.k_np.astype(np.longdouble),
+                                            ld_surface.LD(complex(band.om[lane], 0.023)))
         for name, want in exact.items():
             scale = float(np.abs(want).max())
             err = lambda got: float(np.abs(got - want).max()) / scale
@@ -469,8 +405,9 @@ def test_omega0_lane_two_layer_as_accurate_as_jax(z):
                                                  zz, plan.k_np, band.om, "f64", 0.023,
                                                  True))(jnp.asarray(z))
     for lane in range(2):
-        exact = _ld_surface_operator(model, np.longdouble(z), plan.k_np.astype(np.longdouble),
-                                     LD(complex(band.om[lane], 0.023)))
+        exact = ld_surface.surface_operator(model, np.longdouble(z),
+                                            plan.k_np.astype(np.longdouble),
+                                            ld_surface.LD(complex(band.om[lane], 0.023)))
         for name, want in exact.items():
             scale = float(np.abs(want).max()) or 1.0     # RB2 is 0 in the half-space
             err = lambda got: float(np.abs(got - want).max()) / scale

@@ -254,9 +254,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_package_data_ships_every_compiled_source():
     """pyproject.toml's package-data covers every C, C++ and CUDA source of
-    waveform_ot_torch, among them the two that _build compiles (the CUDA
-    kernel and the native solvers), so a non-editable install can build
-    them."""
+    waveform_ot_torch, among them the three that _build compiles (the two
+    CUDA kernels and the native solvers), so a non-editable install can
+    build them."""
     import tomllib
     from pathlib import Path
 
@@ -271,7 +271,7 @@ def test_package_data_ships_every_compiled_source():
     sources = {src for ext in ("*.cu", "*.cuh", "*.cpp", "*.cc", "*.c", "*.h")
                for src in pkg.rglob(ext) if "_build" not in src.parts}
     compiled = {native._SRC.resolve(), *(p.resolve() for p in _build._SRC_DIR.glob("*.cu"))}
-    assert compiled <= {s.resolve() for s in sources} and len(compiled) == 2
+    assert compiled <= {s.resolve() for s in sources} and len(compiled) == 3
     assert {s.resolve() for s in sources} <= {s.resolve() for s in shipped}
 
 

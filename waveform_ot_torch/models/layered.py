@@ -16,8 +16,9 @@ a point moment-tensor source, from
 The stack algebra runs in native complex128 whatever the working dtype; the
 Bessel assembly and the FFT run in the working dtype (float32 or float64 of
 the stations). Sources come in a leading batch, and the synthesis splits into
-a depth-only stage A (the surface operators, :func:`make_layered_stages`) and
-a per-source stage B. Conventions: (x=North, y=East, z=Up) for inputs and
+a depth-only stage A (the surface operators, :func:`make_layered_stages`;
+on the card one CUDA kernel per band, ``csrc/surface_operator.cu``) and a
+per-source stage B. Conventions: (x=North, y=East, z=Up) for inputs and
 outputs, source depth ``z`` positive downward, components (ux, uy, uz-up),
 shape (..., nr, 3, nt).
 """
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from waveform_ot_torch.models import cuda_surface
 from waveform_ot_torch.models.seismo import StationSet, mxyz_from_upper
 
 # ---------------------------------------------------------------------------
@@ -685,6 +687,88 @@ def _surface_operator(model: LayeredModel, z, grid: _BandGrid, free_surface: boo
     return _SurfaceOperator(rev, src), (_depth_tangent(rev, src) if tangent else None)
 
 
+def _band_operator(model: LayeredModel, z, grid: _BandGrid, free_surface: bool,
+                   tangent: bool):
+    """:func:`_surface_operator`'s result for one band: on the card one
+    launch of the CUDA kernel (``csrc/surface_operator.cu``,
+    :class:`_KernelStageA`), differentiable in z; for CPU tensors the plain
+    version. The kernel computes in complex128 and differentiates in the
+    source depth only, so on the card a complex64 band (``hp_below``) and a
+    model that autograd or forward-mode AD differentiates raise."""
+    if not z.is_cuda:
+        return _surface_operator(model, z, grid, free_surface, tangent)
+    if grid.cdtype != torch.complex128:
+        raise ValueError(f"stage A on the card runs in complex128 only, not {grid.cdtype}: "
+                         "leave hp_below unset, or run the forward on the CPU")
+    if any((torch.is_grad_enabled() and t.requires_grad)
+           or fwAD.unpack_dual(t).tangent is not None for t in model):
+        raise ValueError("stage A on the card differentiates in the source depth only: "
+                         "differentiate the layered model on the CPU")
+    out = _KernelStageA.apply(z, model.to(z.device, torch.float64), grid, free_surface,
+                              tangent)
+    n = len(_Reverb._fields)
+    return (_SurfaceOperator(_Reverb(*out[:n]), _SourceLayer(*out[n:n + 5])),
+            _Reverb(*out[n + 5:]) if tangent else None)
+
+
+class _KernelStageA(torch.autograd.Function):
+    """One band's surface operator from the CUDA kernel (the fields of
+    ``_Reverb``, of ``_SourceLayer`` and, with ``tangent``, of the tangent),
+    differentiable in the source depths z. The depth enters ``_Reverb``
+    alone, and its derivative is the depth tangent: the kernel's where the
+    call asked for it, else its closed form (:func:`_depth_tangent`) on the
+    kernel's own outputs, a few elementwise ops and no second launch (which
+    ``torch.func``'s wrapped tensors could not feed). Backward contracts the
+    cotangents with it, forward mode scales it by z's tangent. The tangent
+    output has no derivative of its own: a gradient through it, or a
+    forward-mode z with ``tangent``, raises."""
+
+    @staticmethod
+    def forward(z, model, grid, free_surface, tangent):
+        rev, src, drev = cuda_surface.surface_operator_cuda(
+            grid.k, grid.om_c, model.interfaces(), model.vp.contiguous(),
+            model.vs.contiguous(), model.rho.contiguous(), z.to(torch.float64).contiguous(),
+            free_surface, tangent)
+        return rev + src + (drev or ())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        n = len(_Reverb._fields)
+        ctx.mark_non_differentiable(*output[n:n + 5])
+        ctx.set_materialize_grads(False)
+        ctx.z_dtype, ctx.tangent = inputs[0].dtype, inputs[4]
+        ctx.save_for_backward(*output)
+        ctx.save_for_forward(*output[:n + 5])
+
+    @staticmethod
+    def _drev(saved):
+        n = len(_Reverb._fields)
+        if len(saved) > n + 5:
+            return saved[n + 5:]
+        return _depth_tangent(_Reverb(*saved[:n]), _SourceLayer(*saved[n:n + 5]))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        n = len(_Reverb._fields)
+        if any(g is not None for g in grads[n + 5:]):
+            raise RuntimeError("stage A's depth tangent on the card has no derivative of "
+                               "its own")
+        drev = _KernelStageA._drev(ctx.saved_tensors)
+        gz = sum((g * d.conj()).real.sum(dim=tuple(range(1, d.dim())))
+                 for g, d in zip(grads[:n], drev) if g is not None)
+        return gz.to(ctx.z_dtype), None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, z_dot, *_):
+        if ctx.tangent:
+            raise RuntimeError("stage A's depth tangent on the card has no derivative of "
+                               "its own: a forward-mode depth takes tangent=False")
+        zd = z_dot.to(torch.float64)
+        return tuple(d * zd.reshape(-1, *(1,) * (d.dim() - 1))
+                     for d in _KernelStageA._drev(ctx.saved_tensors)) + (None,) * 5
+
+
 def _depth_tangent(rev: _Reverb, src: _SourceLayer) -> _Reverb:
     """d(rev)/dz in closed form. The depth enters only through the source
     layer's two partial phases, E_a = diag(e^{i ga h_a}, e^{i gb h_a}) with
@@ -947,9 +1031,10 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
     Jacobian built on them:
 
       * ``stage_a(z, tangent=False)`` -> ops: the moment-independent surface
-        operators of K source depths z (K,) (the stack recursion, the
-        expensive stage); with ``tangent=True`` it returns (ops, dops), dops
-        the z-derivative of their depth-smooth part, in closed form.
+        operators of K source depths z (K,) (the stack recursion); with
+        ``tangent=True`` it returns (ops, dops), dops the z-derivative of
+        their depth-smooth part, in closed form. On the card each band is one
+        launch of the CUDA kernel (:func:`_band_operator`).
       * ``stage_b(ops, x, y, z, a, stations, dops=None)`` -> seismograms:
         moment coefficients ``a`` (:func:`_moment_coeffs`, () or (K,) each)
         applied, the Bessel assembly and the FFT synthesis. Sources x, y, z
@@ -976,8 +1061,8 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
         seismograms are linear in M: the six moment columns are stage B at
         the six unit tensors on the same operators.
 
-    The stack algebra runs in complex128 (complex64 above ``hp_below``
-    rad/s); stage B runs in the stations' dtype. ``model`` defaults to
+    The stack algebra runs in complex128 (on the CPU, complex64 above
+    ``hp_below`` rad/s; the card refuses that band); stage B runs in the stations' dtype. ``model`` defaults to
     :func:`fukuoka_model` on the device of the sources. The grids, the
     source spectrum and the default model are built on a device at its
     first call and kept, so no later call copies host data to the device
@@ -998,7 +1083,7 @@ def make_layered_stages(model: LayeredModel | None = None, nt: int = 61,
 
     def stage_a(z, tangent: bool = False):
         mdl, grids = band_grids(z.device)
-        out = [_surface_operator(mdl, torch.atleast_1d(z), grid, free_surface, tangent)
+        out = [_band_operator(mdl, torch.atleast_1d(z), grid, free_surface, tangent)
                for grid in grids]
         ops = tuple(o for o, _ in out)
         return (ops, tuple(d for _, d in out)) if tangent else ops
@@ -1090,8 +1175,8 @@ def layered_seismograms(x, y, z, mxyz, stations: StationSet,
     (k,), ``mxyz`` (3, 3) shared or (k, 3, 3)) gives (k, nr, 3, nt).
     ``free_surface=False`` buries the receivers in an unbounded medium above
     (the whole-space parity mode). The stack algebra runs in complex128 for
-    float32 and float64 stations alike (complex64 above ``hp_below`` rad/s);
-    the Bessel assembly and the FFT in the stations' dtype.
+    float32 and float64 stations alike (on the CPU, complex64 above
+    ``hp_below`` rad/s); the Bessel assembly and the FFT in the stations' dtype.
     """
     stage_a, stage_b, _ = make_layered_stages(
         model=model, nt=nt, dt=dt, stf=stf, alpha_damp=alpha_damp, pad=pad, t0=t0,
@@ -1122,7 +1207,9 @@ def make_layered_forward(stations: StationSet | None = None,
     closed form (:func:`_depth_tangent`), carried to the spectra and
     contracted with their cotangent: no reverse sweep of the stack algebra. The values equal those of
     ``structured_vjp=False``, plain autograd through everything, bit for
-    bit; the gradients agree to rounding.
+    bit; the gradients agree to rounding. On the card stage A is the CUDA
+    kernel either way, and z's gradient through it is the kernel's own
+    tangent (:class:`_KernelStageA`).
     """
     stage_a, stage_b, _ = make_layered_stages(model=model, nt=nt, dt=dt, **kw)
 
