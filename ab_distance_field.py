@@ -5,10 +5,11 @@ earlier revision of it.
     git show <rev>:waveform_ot_torch/csrc/distance_field.cu > _chipcheck/old.cu
     python3 ab_distance_field.py --old _chipcheck/old.cu
 
-Device times come from ``chip_smoke.device_ms`` (with chip_smoke's
-launches per run for each shape) and bounds from ``chip_smoke.kernel_bound``,
-at chip_smoke.py's shapes (loc64, Ricker, bigfp, one multistart evaluation,
-the scan) in float32 and float64, plus the loc64 grid at fewer traces.
+Device times come from ``waveform_ot_torch.utils.profiling.device_ms`` (with
+chip_smoke's launches per run for each shape) and bounds from
+``otbench.roofline.kernel_bound_s``, the benchmark's own, at chip_smoke.py's
+shapes (loc64, Ricker, bigfp, one multistart evaluation, the scan) in
+float32 and float64, plus the loc64 grid at fewer traces.
 
   * The sweep times the kernel at every split S it is built for (1, 2, 4,
     ..., 32 lanes per point group), marks the S that ``cuda_distance.plan``
@@ -20,8 +21,8 @@ the scan) in float32 and float64, plus the loc64 grid at fewer traces.
     interface. The two kernels are timed in turns (old, new, new, old), and
     the largest |d| difference and the winner flips between them are
     printed. Then the loc64 float32 value+grad call is timed on the host
-    clock (``chip_smoke.host_median_ms``) through each kernel, in the same
-    turns.
+    clock (``utils.profiling.host_median_ms``) through each kernel, in the
+    same turns.
 
 The last line is a JSON record. Without a CUDA card it exits non-zero.
 """
@@ -40,9 +41,12 @@ from pathlib import Path
 import torch
 
 import chip_smoke
+from otbench.roofline import kernel_bound_s
+from waveform_ot_torch.utils.profiling import device_ms, host_median_ms
 
 SPLITS = (1, 2, 4, 8, 16, 32)
 FEWER_TRACES = (3, 12, 48)           # loc64's grid at 1, 4 and 16 stations
+HOST_CALLS = 20                      # loc64 calls per host-clock median
 
 
 @contextlib.contextmanager
@@ -106,6 +110,12 @@ def launches_for(name: str) -> int:
     return chip_smoke.BACK_TO_BACK_BY_SHAPE.get(name, chip_smoke.BACK_TO_BACK)
 
 
+def bound_ms(dt, args) -> float:
+    """The benchmark's least time for the distance field of ``args``."""
+    bsz, nt = args[0].shape[:2]
+    return kernel_bound_s(bsz, nt, args[2].shape[1], args[1].shape[1], str(dt)[6:]) * 1e3
+
+
 def sweep(cases, sms: int, smi: str) -> list:
     from waveform_ot_torch.ops import cuda_distance
 
@@ -113,11 +123,11 @@ def sweep(cases, sms: int, smi: str) -> list:
     for name, dt, args in cases:
         bsz, nt = args[0].shape[:2]
         picked = cuda_distance.plan(bsz, args[2].shape[1], args[1].shape[1], nt - 1, sms)
-        bound, _ = chip_smoke.kernel_bound(*args)
+        bound = bound_ms(dt, args)
         times = {}
         for s in SPLITS:
             with forced_split(s):
-                times[s] = chip_smoke.device_ms(
+                times[s] = device_ms(
                     lambda: cuda_distance.distance_field_cuda(*args), launches=launches_for(name))
         best = min(times, key=times.get)
         rows.append({"shape": name, "dtype": str(dt)[6:], "plan_S": picked, "best_S": best,
@@ -147,17 +157,17 @@ def ab(cases, old, smi: str) -> tuple[list, dict]:
         t = {"old": [], "new": []}
         for who in ("old", "new", "new", "old"):
             with kernel_library(old if who == "old" else new):
-                t[who].append(chip_smoke.device_ms(
+                t[who].append(device_ms(
                     lambda: cuda_distance.distance_field_cuda(*args),
                     launches=launches_for(name)))
-        bound, bound_by = chip_smoke.kernel_bound(*args)
+        bound = bound_ms(dt, args)
         row = {"shape": name, "dtype": str(dt)[6:],
                "old_ms": sum(t["old"]) / 2, "new_ms": sum(t["new"]) / 2,
                "old_runs": t["old"], "new_runs": t["new"], "bound_ms": bound,
-               "bound_by": bound_by, "max_abs_d_diff": d_diff, "winner_flips": flips}
+               "max_abs_d_diff": d_diff, "winner_flips": flips}
         rows.append(row)
         print(f"[ab] {name} {row['dtype']}: old {row['old_ms']:.6f} ms {t['old']}, new "
-              f"{row['new_ms']:.6f} ms {t['new']}, bound {bound:.6f} ms ({bound_by}), "
+              f"{row['new_ms']:.6f} ms {t['new']}, bound {bound:.6f} ms, "
               f"share old {bound / row['old_ms']:.4f} new {bound / row['new_ms']:.4f}; "
               f"max |d old - d new| {d_diff:.3e}, winner flips {flips} [{smi}]")
     # the whole loc64 value+grad call through each kernel
@@ -168,9 +178,9 @@ def ab(cases, old, smi: str) -> tuple[list, dict]:
     call = {"old": [], "new": []}
     for who in ("old", "new", "new", "old"):
         with kernel_library(old if who == "old" else new):
-            call[who].append(chip_smoke.host_median_ms(
-                lambda: loc_cmt_value_and_grad(m, prob, opts, cfg)))
-    print(f"[ab] loc64 value+grad f32 (host clock, median of {chip_smoke.N_TIMED}): "
+            call[who].append(host_median_ms(
+                lambda: loc_cmt_value_and_grad(m, prob, opts, cfg), n=HOST_CALLS))
+    print(f"[ab] loc64 value+grad f32 (host clock, median of {HOST_CALLS}): "
           f"old {call['old']} ms, new {call['new']} ms [{smi}]")
     return rows, call
 

@@ -6,8 +6,8 @@ Phases, one printed line or more each; any failure raises and the exit code
 is non-zero:
 
   1. setup      card name and power limit (the nvidia-smi line, printed as
-                it comes), kernel build time, what ptxas reported for the
-                kernel's variants (registers, spills);
+                it comes), whether the kernel was built or reused, what ptxas
+                reported for the kernel's variants (registers, spills);
   2. kernel     the CUDA distance-field kernel against its plain PyTorch
                 version on the card, at the main path's five shapes
                 (loc64 batch, Ricker, 800x600 fingerprint, one evaluation of
@@ -20,22 +20,22 @@ is non-zero:
   4. ricker     the Ricker objective in float64 on the card, through exactly
                 one kernel launch, against the golden reference values in
                 tests_golden_ref.json;
-  5. timing     loc64 value+grad in float32 and float64 (host clock, median
-                of 20 calls); per shape and dtype the kernel's device time
-                (CUDA events around runs of back-to-back launches, see
-                device_ms), its bound from the shapes (kernel_bound), its
-                share of the bound, the plain version's time, and the
-                kernel variant's ptxas line;
+  5. timing     the kernel alone: per shape and dtype of phase 2 its device
+                time (CUDA events around runs of back-to-back launches, see
+                device_ms), its bound from the shapes
+                (otbench.roofline.kernel_bound_s), its share of the bound,
+                the plain version's time, and the kernel variant's ptxas
+                line;
   6. multistart the bench's Fig 12 study on 11 stations, float32: 64 random
                 starts through minimize_multi_start and through
                 minimize_lbfgs_batched_host, every start within 0.1 km of
                 the source, one kernel launch per batched evaluation of all
-                64 lanes; per study its time, outer iterations, line-search
+                64 lanes; per study its outer iterations, line-search
                 trials, evaluations, launches and failed lanes;
   7. scan       the bench's 21x21x4 misfit-surface scan on 11 stations,
                 float32: value and gradient at all 1,764 nodes in one call
                 through one kernel launch, 8 nodes against float64 on the
-                CPU; its time, peak device memory and the kernel's share;
+                CPU; its peak device memory;
   8. inversion  the Ricker scipy L-BFGS-B inversion in float64 on the card,
                 recorded by an InversionTrace: within 0.02 of the truth and
                 within 1e-6 of the same inversion on the CPU, in as many
@@ -54,21 +54,20 @@ is non-zero:
                 through exactly one kernel launch, against float64 on the CPU
                 (seismograms within 1e-4 of the peak, value within 1e-3,
                 gradient direction cosine > 0.97 and norm ratio in (0.5, 2)),
-                and float64 on the card against float64 on the CPU; host-clock
-                median of 20 calls. In phases 9-11 every stage-A launch
-                outside the timing runs is held the same way (held_stage_a)
-                and counted: one per stage-A call, one per batched
-                evaluation of the study;
+                and float64 on the card against float64 on the CPU. In
+                phases 9-11 every stage-A launch is held the same way
+                (held_stage_a) and counted: one per stage-A call, one per
+                batched evaluation of the study;
  10. layered_scan  values and (x, y, z) gradients at the 21x21x4 = 1,764
                 scan nodes through the layered physics in one call
                 (layered_misfit_grid) and one kernel launch; one node per
                 depth slice against loc_cmt_value_and_grad of the layered
                 forward at that node (f32), and a 4 x 3 sub-grid in f64
-                against its nodes alone; time (median of 3), peak memory;
+                against its nodes alone;
  11. layered_ms the Fig 12 study through the layered physics: 64 starts,
                 minimize_lbfgs_batched_host(max_iter 25, tol 1e-4, ls_max 8),
                 unchunked; at least 75% of starts within 1 km of the source,
-                one kernel launch per batched evaluation; time, iterations,
+                one kernel launch per batched evaluation; iterations,
                 evaluations, launches, the share converged, the worst error;
  12. toolbox    the reference's OT and fingerprint toolbox through the port's
                 compat layer, float64 (toolbox_phase): the FingerprintLib
@@ -87,8 +86,8 @@ is non-zero:
                 by each other) and the plan Jacobians; that script's n = 10
                 flow with its assertions. Every card result against the same
                 call on the CPU's inputs and fingerprints (closed forms 1e-9
-                relative, Sinkhorns 1e-8); a host-clock median per call; the
-                blur's band products against conv1d at 1 and 64 px.
+                relative, Sinkhorns 1e-8); the blur's band products against
+                conv1d at every sigma.
  13. drivers    the reference's two inversion drivers (Ricker_Figs_3_8,
                 Figs 9-12) through compat_ricker and compat_loc_cmt, float64,
                 NumPy in and out (drivers_phase). 13a, compat_ricker at
@@ -103,12 +102,13 @@ is non-zero:
                 and spherical, optfunc_OT and optfunc_L2 at LOC + DM, card
                 against CPU; Moment_LS at LOC; a loc-only scipy L-BFGS-B
                 inversion from LOC + DM on the card ending within 1 km of LOC.
-                Every kernel launch of the phase outside its timing runs
-                (the 40x128 and 79x61 single-trace fingerprints) is held bit
-                for bit against distance_field_torch on its own card inputs
-                (held_launches). Launches per call counted and asserted (0
-                per prop8seis, one per trace per optfunc_OT), in the timing
-                runs too; a host-clock median per call.
+                Every kernel launch of the phase (the 40x128 and 79x61
+                single-trace fingerprints) is held bit for bit against
+                distance_field_torch on its own card inputs (held_launches).
+                Launches per call counted and asserted (0 per prop8seis, one
+                per trace per optfunc_OT), and once more for each entry
+                point: optfunc, prop8seis without a Jacobian, with the
+                location's and with the full one, optfunc_OT, optfunc_L2.
  14. native     the native slice (native_phase). 14a, the fast-marching
                 route at the FingerprintLib demo's full size (626-sample RF,
                 800x600, lambda 0.04): calcpdf(method="FMM") on the card (0
@@ -128,14 +128,14 @@ is non-zero:
                 iterations on the card within 1e-6 of the CPU's in as many
                 calls (ZOOM_RICKER_HELD says why not all 100); the 64-start far-field
                 study (11 stations, f32, max_iter 30, tol 3e-5) through
-                minimize_multi_start(method="zoom"), every start within 0.1 km,
-                its time beside phase 6's "batched" one. Each zoom trial is
-                one batched value+grad call and one launch, asserted. 14d,
-                utils.profiling.top_device_ops on loc64 f32, value+grad
+                minimize_multi_start(method="zoom"), every start within 0.1 km.
+                Each zoom trial is one batched value+grad call and one
+                launch, asserted. Launches per call asserted once more for
+                calcpdf (FMM 0, Enumerate 1), wasserPOT and sinkhornPOT (0).
+                14d, utils.profiling.top_device_ops on loc64 f32, value+grad
                 (the kernel traced, its rank printed) and value alone (the
-                kernel among the top five). Every launch outside the timing
-                runs is held bit for bit (held_launches); host-clock medians
-                per call.
+                kernel among the top five). Every launch of 14a-c is held
+                bit for bit (held_launches).
  15. parallel   the parallel layer (parallel_phase): waveform_ot_torch.parallel
                 and the two sharded inversion entry points on the mesh of the
                 visible cards and on 4 shards of cuda:0 (a (2, 2) mesh for
@@ -149,9 +149,8 @@ is non-zero:
                 problem at 12 stations (f32, f64). Each against the same call
                 unsharded on the card (f64 1e-12 / 1e-11 of max |g|, layered
                 1e-9; f32 the card-vs-CPU bars above), one kernel launch per
-                shard per evaluation (asserted), every launch outside the
-                timing runs held bit for bit (held_launches); host-clock
-                medians of 3, unsharded and per mesh.
+                shard per evaluation (asserted), every launch held bit for
+                bit (held_launches).
  16. examples   the port's nine example scripts (examples/torch_*.py;
                 examples_phase), each through its run() at the script's
                 defaults on the card, ricker_inversion also with zoom=True,
@@ -162,27 +161,25 @@ is non-zero:
                 counted and asserted (one per objective evaluation, per
                 surface or profile, per scan call; none for the point masses
                 or the least-squares moment tensors); every launch outside
-                the scaling study's timing runs held bit for bit
-                (held_launches); the point masses, the migration self-test,
-                the derivative walkthrough, the Ricker scipy inversion and the
-                receiver function's fields held against the same run on the
-                CPU (1e-9 relative; the same iterations and 1e-6; phase 14a's
-                bars); each script's host wall time; the scaling study's
-                value+grad time and traces/s at 64, 256 and 1,024 stations,
-                and the kernel at loc1024's 3,072 traces (bit for bit, device
+                the scaling study's run held bit for bit (held_launches);
+                the point masses, the migration self-test, the derivative
+                walkthrough, the Ricker scipy inversion and the receiver
+                function's fields held against the same run on the CPU (1e-9
+                relative; the same iterations and 1e-6; phase 14a's bars);
+                the kernel at loc1024's 3,072 traces (bit for bit, device
                 time, bound, share).
  17. entry      the system's own entry points (entry_phase), the port's
                 __graft_entry__ (waveform_ot_torch.entry): entry() at JAX's
                 sizes (4 stations, nt 61, nk 96, f32) in one kernel launch
                 against the same call in float64 on the CPU (the layered f32
-                bars), its host ms; dryrun_multichip(4) and (8) on shards of
+                bars); dryrun_multichip(4) and (8) on shards of
                 the card, each step against the same call on the CPU (f32),
                 one launch per shard per step; the trace-sharded Adam step at
                 loc64 width and the station-sharded layered Adam step at 12
                 stations, nk 512, unsharded, on the mesh of the visible cards
-                and on 4 shards, each against the unsharded step: ms per step,
-                launches, m1, peak memory. Every launch outside the timing
-                runs held bit for bit (held_launches).
+                and on 4 shards, each against the unsharded step: launches,
+                m1, peak memory. Every launch held bit for bit
+                (held_launches).
  18. bench      the port's benchmark program (bench_phase): python -m
                 waveform_ot_torch.bench, bench.py's ten stages at its
                 accelerator repeat counts, each in a process of its own; its
@@ -206,10 +203,12 @@ is non-zero:
 In phases 13-17 and 19 held_launches holds every stage-A launch as phases
 9-11 do, and every stage-A launch the phase counts must have been held or
 recorded by a CUDA graph capture; phase 18's bench runs in processes of its
-own, where nothing is held. The line before the last is the kernels'
-JSON record (the distance field, then the stage-A kernel); the last line is
-{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
-printing any result.
+own, where nothing is held. The only times printed are the two kernels'
+alone, on the device (phases 5, 9 and 16), against their bounds; the
+benchmark (python3 -m otbench.run) times the system. The line before the
+last is the kernels' JSON record (the distance field, then the stage-A
+kernel); the last line is {"ok": true, "device": {...}}. Without a CUDA card
+it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -222,21 +221,20 @@ import signal
 import subprocess
 import sys
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from otbench.roofline import PEAK_BYTES, PEAK_OPS, kernel_bound_s
 from waveform_ot_torch.bench import STAGES as BENCH_STAGES
 from waveform_ot_torch.bench import layered_scan_axes as scan_axes
 from waveform_ot_torch.bench import scan_nodes
 from waveform_ot_torch.entry import LOC, NT
-from waveform_ot_torch.utils.profiling import device_ms, events_ms, host_median_ms
+from waveform_ot_torch.utils.profiling import device_ms, events_ms
 
 REPO = Path(__file__).resolve().parent
 DM = (4.0, -3.0, 2.0)           # the bench's evaluation point is LOC + DM
-N_TIMED = 20
 TOL = {torch.float64: 1e-12, torch.float32: 1e-6}
 VALUE_RTOL_F32 = 1e-4            # loc64 f32 on the card vs f64 on the CPU
 GRAD_TOL_F32 = 1e-3              # ... in units of max |g|
@@ -269,24 +267,11 @@ SCAN_VALUE_RTOL_F32, SCAN_GRAD_TOL_F32 = 1e-5, GRAD_TOL_F32
 SCAN_TOL_F64 = 1e-10
 LAYERED_MS_RADIUS_KM = 1.0
 LAYERED_MS_SHARE = 0.75          # the bench's bar: this share of starts within 1 km
-STUDY_TIMED = 3                  # study and scan timings: median of 3
 KERNEL_NAME = "distance_field_kernel"  # the kernel's symbol, as ptxas and the profiler name it
 SCAN_CHECKED = 8                 # scan nodes held against float64 on the CPU
 RICKER_TRUTH = (0.0, 1.6, 1.0)
 RICKER_TRUTH_TOL = 0.02          # inversion result against the truth
 RICKER_X_TOL = 1e-6              # card inversion against the CPU one
-# The bound counts the operations these inputs need, against the H100 SXM's
-# peaks outside the tensor cores at a 700 W limit, and each input read once and
-# each output written once against HBM3. bx = px - x0x and bx*cx depend only on
-# the grid column and the segment, by = py - x0y and by*cy only on the row and
-# the segment: 2 operations per (column, segment) and per (row, segment) pair.
-# Each point-segment pair then needs 12: 1 add for b.c, 1 scale by 1/|c|^2, 2
-# for the clip, 4 for dx and dy, 3 for dsq, 1 compare. The per-segment 1/|c|^2
-# and the per-point sqrt are left out (under 0.1% at every shape here).
-OPS_PER_PAIR = 12
-OPS_PER_LINE = 2
-PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
-PEAK_BYTES = 3.35e12
 # phase 12: FingerprintLib's self-demo (examples/receiver_function_demo.py:35-45)
 RF_NT, RF_NU, RF_NTG, RF_LAMBDA = 626, 800, 600, 0.04
 RF_SHIFT = 0.01                  # s: the predicted RF is the observed one delayed
@@ -298,7 +283,7 @@ SINKHORN_ITERS = 250             # the reference Sinkhorn's default
 # repo's tests use 1 px (tests/test_parity_reference.py:506). 64 px is a
 # stand-in at which the reference's 250 steps reach the fixed point; the phase
 # runs and prints every sigma of SINKHORN_SIGMAS, holds the fixed point at
-# SINKHORN_SIGMA_PX only, and times the call at 1 px and at SINKHORN_SIGMA_PX.
+# SINKHORN_SIGMA_PX only.
 SINKHORN_SIGMA_PX = 64.0
 SINKHORN_SIGMAS = (1.0, 16.0, SINKHORN_SIGMA_PX)
 SINKHORN_RESIDUAL = 1e-4         # max |v K(w) - mu0| / max mu0 after the steps
@@ -322,7 +307,6 @@ PDF_ATOL = 1e-12                 # calcpdf's pdf, card vs CPU
 # parts from the CPU's by an ulp at some points
 POS_ATOL = 1e-15
 CHAIN_RTOL = 1e-8                # PDFderivMarg vs autograd
-TOOLBOX_TIMED = 5                # host-clock median of 5 (Sinkhorns: 3)
 # phase 13: the reference's two inversion workflows through compat_ricker and
 # compat_loc_cmt. 13a at Ricker_Figs_3_8's settings (tests/test_compat_l3.py:84-96)
 DRIVER_RICKER_GRID = (-2.0, 7.0, -2.0, 2.6, 40, 128)
@@ -343,13 +327,11 @@ DRIVER_LAMBDA = 0.04
 DRIVER_F64_TOL = SEIS_TOL_F64
 DRIVER_MLS_RTOL = 1e-6         # Moment_LS at the source of noiseless data
 DRIVER_LOC_KM = 1.0            # the loc-only scipy inversion's end point
-DRIVER_TIMED = 5               # host-clock median of 5 per call
 # phase 14: the native slice. The fast-marching field is host code, so its
 # bars are twice what the same comparison gives on the CPU (800x600 RF
 # fingerprint, band d > 2/nu: median 3.5103e-4, max 1.6140e-3)
 FMM_MEDIAN_BOUND = 2 * 3.5103e-4
 FMM_MAX_BOUND = 2 * 1.6140e-3
-NATIVE_TIMED = 5               # host-clock median of 5 per call
 POT_GRID = (12, 16)            # the 2-D EMD pair: 192 points each
 POT_1D = 200                   # points of the 1-D EMD pair
 POT_RTOL = 1e-9                # EMD against the LP oracle and the closed form
@@ -376,7 +358,6 @@ PAR_VALUE_RTOL_F64 = 1e-12     # sharded vs unsharded on the card, float64
 PAR_GRAD_TOL_F64 = 1e-11       # ... of max |g|
 PAR_LAYERED_TOL_F64 = 1e-9     # JAX's station-sharded contract (tests/test_parallel.py:411-431)
 PAR_DP_SP_SHIFTS = (RF_SHIFT, -RF_SHIFT)
-PAR_TIMED = 3                  # host-clock median of 3 per call
 # phase 16: the port's example scripts (examples/torch_*.py) at their defaults.
 # Launches per run where they do not depend on the data: derivative
 # walkthrough, stage 1 one gradient and 4 x 2 central differences, stage 2 the
@@ -420,7 +401,6 @@ BENCH_STUDIES = {"multistart", "layered_ms"}   # 1 launch per batched evaluation
 BENCH_BUDGET_S = 600           # the bench's own budget (WOT_BENCH_BUDGET_S) in this phase
 BENCH_TIMEOUT_S = 660
 SURFACE_RTOL = 1e-12           # ops.wasser on the card vs the CPU, relative
-SURFACE_TIMED = 5
 # Adam's first step moves each coordinate by about lr: card and CPU (f32 both)
 # part by rounding only, unless a gradient component is near 0, which none of
 # these is (the smallest is ~5% of the largest)
@@ -445,22 +425,22 @@ STAGE_A_ULPS = 16
 STAGE_A_ACCURACY = 4.0
 STAGE_A_LD_FIRST, STAGE_A_LD_EVERY = 4, 16
 STAGE_A_SMOOTH = ("ga", "gb", "chi", "Wsh", "RAsh", "RBsh", "innersh")
-STAGE_A_PSV = ("W2", "RA2", "RB2", "inner2")
 # the kernel timed at the cells' quadrature (otbench/configs/fukuoka11.json) and
 # the main path's source counts: one (the single-model calls), 4 (the scan's
 # depths), 64 (the batched study's lanes), with the tangent
 STAGE_A_NK, STAGE_A_KMAX = 1024, 2.5
 STAGE_A_SOURCES = {"calls": 1, "scan": 4, "study": 64}
 # The bound counts the kernel's float64 operations per point at the peak the
-# distance field's bound takes (PEAK_OPS), and the outputs written once at
-# HBM3's rate (the inputs are a few kB). Operations, counted from the source
-# with a complex add as 2, a complex product as 6 and Smith's quotient as 10
-# (a real division, sqrt, exp, sin and cos as 1 each): a layer's material 31,
-# an interface (two layers' blocks, the P-SV and SH R/T and their compositions
-# into a stack) 1,878, a layer phase 134, the receiver map 751, the tangent
-# 416, and 6 for omega^2. Each point evaluates 2 nlay + 2 layers, every
-# interface once and about nlay phases (one fewer where a source sits on an
-# interface or at the surface).
+# distance field's bound takes (otbench.roofline.PEAK_OPS), and the outputs
+# written once at HBM3's rate (otbench.roofline.PEAK_BYTES; the inputs are a
+# few kB). Operations, counted from the source with a complex add as 2, a
+# complex product as 6 and Smith's quotient as 10 (a real division, sqrt,
+# exp, sin and cos as 1 each): a layer's material 31, an interface (two
+# layers' blocks, the P-SV and SH R/T and their compositions into a stack)
+# 1,878, a layer phase 134, the receiver map 751, the tangent 416, and 6 for
+# omega^2. Each point evaluates 2 nlay + 2 layers, every interface once and
+# about nlay phases (one fewer where a source sits on an interface or at the
+# surface).
 STAGE_A_OPS = {"layer": 31, "interface": 1878, "phase": 134, "receiver": 751,
                "tangent": 416, "omega": 6}
 STAGE_A_BYTES = {False: 368, True: 688}    # outputs per point, without and with the tangent
@@ -656,23 +636,6 @@ def compare_fields(got, ref, tol: float) -> dict:
             "lam_err": lam_err, "dvec_err": dvec_err}
 
 
-def kernel_bound(verts, tgrid, ugrid) -> tuple[float, str]:
-    """(least time in ms, "operations" or "bytes") for the distance field of
-    these inputs on the card: OPS_PER_PAIR per point-segment pair and
-    OPS_PER_LINE per grid row or column and segment at the dtype's peak, or
-    the inputs read once and d, iclose, lam, dvec written once at the HBM
-    rate, whichever is longer."""
-    bsz, nt = verts.shape[:2]
-    ntg, nu = tgrid.shape[1], ugrid.shape[1]
-    npts = bsz * ntg * nu
-    es = verts.element_size()
-    ops = bsz * (nt - 1) * (OPS_PER_PAIR * nu * ntg + OPS_PER_LINE * (nu + ntg))
-    ops_ms = ops / PEAK_OPS[verts.dtype] * 1e3
-    nbytes = es * (verts.numel() + tgrid.numel() + ugrid.numel()) + npts * (4 * es + 4)
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
 def stage_a_bound(nsrc: int, nf: int, nk: int, nlay: int, tangent: bool) -> tuple[float, str]:
     """(least time in ms, "operations" or "bytes") for one launch of the
     stage-A kernel on these sizes: STAGE_A_OPS per point at the float64
@@ -682,7 +645,7 @@ def stage_a_bound(nsrc: int, nf: int, nk: int, nlay: int, tangent: bool) -> tupl
     per_point = (o["omega"] + (2 * nlay + 2) * o["layer"] + (nlay - 1) * o["interface"]
                  + nlay * o["phase"] + o["receiver"] + (o["tangent"] if tangent else 0))
     points = nsrc * nf * nk
-    ops_ms = points * per_point / PEAK_OPS[torch.float64] * 1e3
+    ops_ms = points * per_point / PEAK_OPS["float64"] * 1e3
     bytes_ms = points * STAGE_A_BYTES[bool(tangent)] / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -761,13 +724,11 @@ def held_stage_a(phase: str):
     {(K, nf, nk, tangent): launches held}, "recorded", "counted"
     (counted_stage_a's), "exact" (launches held against the long-double
     recursion too), "ulps" and "ratio" (the worst of check_stage_a's two
-    readings), "check_s"}; on leaving,
-    STAGE_A_HELD[phase] gains the launches held."""
+    readings)}; on leaving, STAGE_A_HELD[phase] gains the launches held."""
     from waveform_ot_torch.models import layered as TL
 
     real = TL._KernelStageA.__dict__["forward"]
-    held = {"shapes": {}, "recorded": 0, "counted": 0, "exact": 0, "ulps": 0.0,
-            "ratio": 0.0, "check_s": 0.0}
+    held = {"shapes": {}, "recorded": 0, "counted": 0, "exact": 0, "ulps": 0.0, "ratio": 0.0}
     lock = threading.Lock()      # a mesh's per-device threads launch at once
 
     def checked(z, model, grid, free_surface, tangent):
@@ -776,7 +737,6 @@ def held_stage_a(phase: str):
             with lock:
                 held["recorded"] += 1
             return out
-        t0 = time.perf_counter()
         key = (z.shape[0], grid.om_c.shape[0], grid.k.shape[0], bool(tangent))
         with lock:
             i = held["shapes"].get(key, 0)
@@ -787,7 +747,6 @@ def held_stage_a(phase: str):
         with lock:
             held["exact"] += exact
             held["ulps"], held["ratio"] = max(held["ulps"], ulps), max(held["ratio"], ratio)
-            held["check_s"] += time.perf_counter() - t0
         return out
 
     sys.path.insert(0, str(REPO / "tests"))      # ld_surface, the long-double recursion
@@ -809,8 +768,7 @@ def stage_a_report(tag: str, held: dict, counted: int) -> None:
           f"{counted} counted; by (K, nf, nk, tangent) {held['shapes']}; worst well-conditioned "
           f"field {held['ulps']:.2f} ulps (bound {STAGE_A_ULPS}); P-SV fields of {held['exact']} "
           f"launches against the long-double recursion, worst error {held['ratio']:.3f}x the "
-          f"plain version's (bound {STAGE_A_ACCURACY:g}x + 64 ulps); "
-          f"{held['check_s']:.2f} s of checks")
+          f"plain version's (bound {STAGE_A_ACCURACY:g}x + 64 ulps)")
     if n_held + held["recorded"] < counted:
         raise AssertionError(f"{tag}: {counted - n_held - held['recorded']} of {counted} "
                              f"stage-A launches went past the check")
@@ -897,13 +855,12 @@ def held_launches(phase: str):
     call of each graph runs eagerly, held here). Every launch of the
     stage-A kernel inside the block is held too (held_stage_a). Yields
     {"shapes": {(B, nt, nu, ntg, dtype): launches held}, "replayed":
-    launches made by graph replays, "check_s": host seconds the checks
-    took, "stage_a": held_stage_a's record}."""
+    launches made by graph replays, "stage_a": held_stage_a's record}."""
     from waveform_ot_torch.inversion import cuda_graph
     from waveform_ot_torch.ops import cuda_distance, distance_field_torch
 
     real, real_replay = cuda_distance.distance_field_cuda, cuda_graph._replay
-    held = {"shapes": {}, "replayed": 0, "check_s": 0.0}
+    held = {"shapes": {}, "replayed": 0}
 
     def replay(entry, ms):
         held["replayed"] += entry.launches
@@ -913,7 +870,6 @@ def held_launches(phase: str):
         out = real(verts, tgrid, ugrid)
         if torch.cuda.is_current_stream_capturing():
             return out
-        t0 = time.perf_counter()
         with torch.no_grad():
             plain = distance_field_torch(verts, tgrid, ugrid)
         same = [torch.equal(a, b) for a, b in zip(out, plain)]
@@ -923,7 +879,6 @@ def held_launches(phase: str):
                                  f"{key} differs from distance_field_torch on its inputs "
                                  f"(d, iclose, lam, dvec equal: {same})")
         held["shapes"][key] = held["shapes"].get(key, 0) + 1
-        held["check_s"] += time.perf_counter() - t0
         return out
 
     cuda_distance.distance_field_cuda, cuda_graph._replay = checked, replay
@@ -935,13 +890,13 @@ def held_launches(phase: str):
 
 
 class PhaseChecks:
-    """The counted, held and timed calls of a phase whose lines start with
-    ``[tag]`` (phases 13 and 14). ``n_counted`` sums the launches of every
+    """The counted and held calls of a phase whose lines start with
+    ``[tag]`` (phases 13-17 and 19). ``n_counted`` sums the launches of every
     counted call, to be held against ``held_launches``' count, and
     ``n_stage_a`` the stage-A kernel's."""
 
-    def __init__(self, tag: str, card: str):
-        self.tag, self.card, self.n_counted, self.n_stage_a = tag, card, 0, 0
+    def __init__(self, tag: str):
+        self.tag, self.n_counted, self.n_stage_a = tag, 0, 0
 
     def counted(self, fn, want=None, what=""):
         """fn() with the kernel's launch count set to 0 just before and read
@@ -966,32 +921,13 @@ class PhaseChecks:
         if not dev_ <= bound:
             raise AssertionError(f"{self.tag} {name}: {dev_!r} exceeds {bound:g}")
 
-    def timed(self, name, fn, want, n: int) -> float:
-        """Host-clock median of n calls of fn(); the launches counted over
-        every call of the timing, the warm-up included, must be ``want`` per
-        call."""
-        from waveform_ot_torch.ops import cuda_distance
-
-        torch.cuda.synchronize()
-        cuda_distance.LAUNCHES = 0
-        ms = host_median_ms(fn, n=n, warm=1)
-        torch.cuda.synchronize()
-        per = cuda_distance.LAUNCHES / (n + 1)
-        print(f"[timing] {self.tag} {name}: {ms:.4f} ms/call (host clock, synchronized, median "
-              f"of {n}), kernel launches per call {per:g} (counted over the {n + 1} calls) "
-              f"{self.card}")
-        if per != want:
-            raise AssertionError(f"{name}: {per} kernel launches per timed call, not {want}")
-        return ms
-
     def check_held(self, held):
         """Every counted launch went through held_launches' check or was a
         CUDA graph's replay."""
         n_held = sum(held["shapes"].values())
         print(f"[{self.tag}] launches held bit for bit against distance_field_torch on their "
               f"card inputs: {n_held}, and {held['replayed']} made by CUDA graph replays, of "
-              f"{self.n_counted} counted outside the timing runs; by (B, nt, nu, ntg, dtype) "
-              f"{held['shapes']}; {held['check_s']:.2f} s of checks")
+              f"{self.n_counted} counted; by (B, nt, nu, ntg, dtype) {held['shapes']}")
         if n_held + held["replayed"] < self.n_counted:
             raise AssertionError(f"{self.n_counted - n_held - held['replayed']} of "
                                  f"{self.n_counted} counted "
@@ -1005,7 +941,7 @@ def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
+def layered_phases(dev, opts, per_eval: dict) -> dict:
     """Phases 9-11: the layered physics on the card. Returns the
     distance-field kernel's launches of each path, the stage-A kernel's,
     and the stage-A kernel's per call (per batched evaluation of the
@@ -1020,7 +956,7 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
     launches, stage_a = {}, {}
     dm = torch.tensor(DM)
     # 9. value and gradient at LOC + DM; every stage-A launch of phases 9-11
-    # outside their timing runs held (held_stage_a) and counted, one per call
+    # held (held_stage_a) and counted, one per call
     loc, cfg, prob32, fwd32, stages32 = build_layered_problem(f32, dev)
     m32 = loc + dm.to(dev, f32)
     res, built = {}, {}
@@ -1076,10 +1012,6 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
     if (dev_f64["seis"] > SEIS_TOL_F64 or dev_f64["value"] > VALUE_RTOL_F64
             or dev_f64["grad"] > GRAD_TOL_F64):
         raise AssertionError("layered f64 on the card deviates from f64 on the CPU")
-    ms_call = host_median_ms(lambda: loc_cmt_value_and_grad(m32, prob32, opts, cfg,
-                                                            forward=fwd32), n=N_TIMED)
-    print(f"[timing] layered value+grad f32: {ms_call:.4f} ms/call (host clock, "
-          f"synchronized, median of {N_TIMED}) {card}")
 
     # 10. the depth-amortized scan
     zs, xy = scan_axes(f32, dev)
@@ -1125,29 +1057,21 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
           f"its nodes alone: {dev64:.3e} (bound {SCAN_TOL_F64:g})")
     if worst_v > SCAN_VALUE_RTOL_F32 or worst_g > SCAN_GRAD_TOL_F32 or dev64 > SCAN_TOL_F64:
         raise AssertionError("layered scan nodes deviate from the same nodes alone")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()      # over the timing runs, which hold nothing
-    scan_ms = host_median_ms(lambda: layered_misfit_grid(zs, xy, prob32, opts, cfg, stages32),
-                             n=STUDY_TIMED, warm=0)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[layered_scan] {sv.numel()} nodes x {NR_STUDY} stations x 3 = {3 * NR_STUDY * sv.numel()} "
-          f"traces, f32, values and gradients in one call: {scan_ms:.4f} ms per scan (host "
-          f"clock, synchronized, median of {STUDY_TIMED}); kernel launches "
-          f"{launches['layered_scan']}, stage-A launches {stage_a['layered_scan']}; peak device "
-          f"memory {peak_gb:.3f} GB (over the timed scans) {card}")
+          f"traces, f32, values and gradients in one call: kernel launches "
+          f"{launches['layered_scan']}, stage-A launches {stage_a['layered_scan']}")
     del sv, sg
     torch.cuda.empty_cache()
 
     # 11. the 64-start study through the layered physics
     starts = study_starts(f32, dev)
-    misfit = lambda ms: loc_cmt_misfit(ms, prob32, opts, cfg, forward=fwd32)
-    solve = lambda f: minimize_lbfgs_batched_host(f, starts, max_iter=25, tol=1e-4, ls_max=8)
-    fun = CountedObjective(misfit)
+    fun = CountedObjective(lambda ms: loc_cmt_misfit(ms, prob32, opts, cfg, forward=fwd32))
     with held_stage_a("layered_ms") as held:
         torch.cuda.synchronize()
         cuda_distance.LAUNCHES = 0
-        res, stage_a["layered_ms"] = counted_stage_a(lambda: solve(fun), held, None,
-                                                     "the layered study")
+        res, stage_a["layered_ms"] = counted_stage_a(
+            lambda: minimize_lbfgs_batched_host(fun, starts, max_iter=25, tol=1e-4, ls_max=8),
+            held, None, "the layered study")
         launches["layered_ms"] = cuda_distance.LAUNCHES
     stage_a_report("layered_ms", held, held["counted"])
     evals = fun.values + fun.value_grads
@@ -1158,14 +1082,12 @@ def layered_phases(dev, opts, card: str, per_eval: dict) -> dict:
     err = torch.linalg.vector_norm(res.x.double() - torch.tensor(LOC, dtype=f64, device=dev),
                                    dim=1)
     share = (err < LAYERED_MS_RADIUS_KM).double().mean().item()
-    study_ms = host_median_ms(lambda: solve(misfit), n=STUDY_TIMED, warm=0)
-    print(f"[layered_ms] {N_STARTS} starts, {NR_STUDY} stations, f32: {study_ms:.4f} ms per "
-          f"study (host clock, synchronized, median of {STUDY_TIMED}); outer iterations "
+    print(f"[layered_ms] {N_STARTS} starts, {NR_STUDY} stations, f32: outer iterations "
           f"{fun.value_grads - 1}, line-search trials {fun.values}, batched evaluations "
           f"{evals}, kernel launches {launches['layered_ms']}; ls_failed lanes "
           f"{int(res.ls_failed.sum())}; within {LAYERED_MS_RADIUS_KM:g} km: {share:.4f} "
           f"(bound {LAYERED_MS_SHARE:g}); distance to the source max {err.max().item():.6f} "
-          f"km, median {err.median().item():.6f} km {card}")
+          f"km, median {err.median().item():.6f} km")
     if launches["layered_ms"] != evals:
         raise AssertionError(f"layered_ms: {launches['layered_ms']} kernel launches for "
                              f"{evals} batched evaluations")
@@ -1192,13 +1114,12 @@ def stage_a_phase(dev, card: str) -> list:
     plan = TL._synth_plan(NT, 1.0, 2, ("clp_step", 0.05, 0.2), STAGE_A_NK, STAGE_A_KMAX,
                           float("inf"))
     (grid,) = [TL._band_grid(b, plan.k_np, 0.023, dev) for b in plan.bands]
-    t0 = time.perf_counter()
     cuda_surface._library()
     ptxas = "; ".join(line.split(":")[-1].strip()
                       for line in _build.ptxas_log("surface_operator").splitlines()
                       if "spill" in line or "Used" in line)
-    print(f"[stage_a] {_build.library_path('surface_operator').relative_to(REPO)} loaded in "
-          f"{time.perf_counter() - t0:.2f} s; ptxas -v: {ptxas}")
+    print(f"[stage_a] {_build.library_path('surface_operator').relative_to(REPO)} loaded; "
+          f"ptxas -v: {ptxas}")
     rows = []
     sys.path.insert(0, str(REPO / "tests"))      # ld_surface, the long-double recursion
     try:
@@ -1244,7 +1165,7 @@ def _nested_dev(got, ref) -> float:
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
 
 
-def toolbox_phase(dev, card: str) -> tuple[dict, dict]:
+def toolbox_phase(dev) -> tuple[dict, dict]:
     """Phase 12: the reference's OT and fingerprint toolbox on the card through
     the port's compat layer, float64. Returns the kernel launches of the path
     ({"toolbox": n}) and of one calcpdf."""
@@ -1253,12 +1174,11 @@ def toolbox_phase(dev, card: str) -> tuple[dict, dict]:
         FingerprintSpec, cuda_distance, distance_field_torch, fingerprint_density, grid_axes,
     )
     from waveform_ot_torch.ops.fingerprint import nearest_vertex
-    from waveform_ot_torch.ops.sinkhorn import gaussian_filter, sinkhorn_log
+    from waveform_ot_torch.ops.sinkhorn import sinkhorn_log
     from waveform_ot_torch.ops.sliced import sliced_plan_jacobian
     from waveform_ot_torch.ops.validate import monge_1d
 
     cpu, f64 = torch.device("cpu"), torch.float64
-    t_phase = time.perf_counter()
     checks = []
 
     def hold(name, dev_, bound):
@@ -1268,17 +1188,11 @@ def toolbox_phase(dev, card: str) -> tuple[dict, dict]:
             raise AssertionError(f"toolbox {name}: {dev_!r} exceeds {bound:g}")
 
     def both(name, call, card_args, cpu_args, bound):
-        """call(*args) on the card's and on the CPU's twin inputs, each run
-        timed once; holds the card's result against the CPU's at ``bound``
-        (largest relative deviation) and returns the card's."""
-        t0 = time.perf_counter()
+        """call(*args) on the card's and on the CPU's twin inputs; holds the
+        card's result against the CPU's at ``bound`` (largest relative
+        deviation) and returns the card's."""
         got = call(*card_args)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ref = call(*cpu_args)
-        t2 = time.perf_counter()
-        hold(f"{name}, card vs cpu (one run each: card {t1 - t0:.3f} s, cpu {t2 - t1:.3f} s)",
-             _nested_dev(got, ref), bound)
+        hold(f"{name}, card vs cpu", _nested_dev(got, call(*cpu_args)), bound)
         return got
 
     def held_fingerprints(t_, waves, grid_, lambdav, name, deriv=False):
@@ -1498,61 +1412,22 @@ def toolbox_phase(dev, card: str) -> tuple[dict, dict]:
          mig["card"], mig["cpu"], CLOSED_RTOL)
     torch.cuda.synchronize()
     launches = cuda_distance.LAUNCHES - oracle
-    checked_s = time.perf_counter() - t_phase
-    print(f"[toolbox] {len(checks)} checks held in {checked_s:.1f} s (card and CPU runs); "
-          f"distance-field kernel launches on the path {launches}, one per calcpdf(Enumerate)")
+    print(f"[toolbox] {len(checks)} checks held; distance-field kernel launches on the path "
+          f"{launches}, one per calcpdf(Enumerate)")
     if launches != TOOLBOX_LAUNCHES:
         raise AssertionError(f"the toolbox path launched the distance-field kernel {launches} "
                              f"times, not {TOOLBOX_LAUNCHES}")
-
-    # timings, after the path's launches are read
-    calls = [
-        ("calcpdf Enumerate+deriv 800x600", lambda: wf.calcpdf(
-            lambdav=RF_LAMBDA, method="Enumerate", deriv=True), TOOLBOX_TIMED),
-        ("calcpdf NNsearch 800x600", lambda: wfn.calcpdf(
-            lambdav=RF_LAMBDA, method="NNsearch"), TOOLBOX_TIMED),
-        ("NNsearch ni=2 800x600", lambda: compat.NNsearch(wf, ni=2), TOOLBOX_TIMED),
-        ("MargWasserstein derivatives", lambda: compat.MargWasserstein(
-            *ot["card"], derivatives=True, returnmargW=True), TOOLBOX_TIMED),
-        (f"SlicedWasserstein {TOOLBOX_NPROJ} derivatives", lambda: compat.SlicedWasserstein(
-            *ot["card"], TOOLBOX_NPROJ, derivatives=True), TOOLBOX_TIMED),
-        ("wasser W12 + plan + Jacobian 600", lambda: compat.wasser(
-            *tm["card"], "W12", derivatives=True, returnplan=True), TOOLBOX_TIMED),
-        ("barypath continuous", lambda: compat.barypath(
-            *tm["card"], weights, npoints=BARY_NPOINTS), TOOLBOX_TIMED),
-        ("barypath pointmass", lambda: compat.barypath(*tm["card"], weights, pointmass=True),
-         TOOLBOX_TIMED),
-        *((f"Sinkhorn Gaussian {SINKHORN_ITERS} steps 800x600 sigma {sigma:g} px",
-           lambda sigma=sigma: compat.Sinkhorn(*ot["card"], gamma=sigma, iter=SINKHORN_ITERS),
-           3) for sigma in (1.0, SINKHORN_SIGMA_PX)),
-        ("Sinkhorn_MS 5001 steps 4800", lambda: compat.Sinkhorn_MS(*mig["card"]), 3),
-        ("sinkhorn_log 500 steps 4800", lambda: sinkhorn_log(
-            mig["card"][0].density, mig["card"][1].density, iters=500), 3),
-    ]
-    for name, fn, n in calls:
-        ms_call = host_median_ms(fn, n=n, warm=1)
-        print(f"[timing] toolbox {name}: {ms_call:.4f} ms/call (host clock, synchronized, "
-              f"median of {n}) {card}")
-    img = torch.tensor(mu1, device=dev)
-    for sigma in (1.0, SINKHORN_SIGMA_PX):
-        taps = 2 * int(32 * sigma + 0.5) + 1
-        band = device_ms(lambda: gaussian_filter(img, sigma), launches=20)
-        conv = device_ms(lambda: conv_blur(img, sigma), launches=20)
-        print(f"[timing] toolbox gaussian blur 800x600 sigma {sigma:g} px ({taps} taps): band "
-              f"products {band:.4f} ms, conv1d {conv:.4f} ms (device, 20 back-to-back calls, "
-              f"median of {SAMPLES}) {card}")
-    print(f"[toolbox] phase {time.perf_counter() - t_phase:.1f} s")
     return {"toolbox": launches}, {"toolbox_calcpdf": 1}
 
 
-def drivers_phase(dev, card: str) -> tuple[dict, dict]:
+def drivers_phase(dev) -> tuple[dict, dict]:
     """Phase 13: the reference's two inversion drivers through compat_ricker
     and compat_loc_cmt, on the card through their entry points, float64, each
     single call held against the same call on the CPU, each inversion by its
-    end point, and every kernel launch outside the timing runs held bit for
-    bit against the plain field on its own card inputs (held_launches).
-    Returns the kernel launches of the two inversions and the launches per
-    call of each entry point, as counted."""
+    end point, and every kernel launch held bit for bit against the plain
+    field on its own card inputs (held_launches). Returns the kernel
+    launches of the two inversions and the launches per call of each entry
+    point, as counted."""
     import scipy.optimize
 
     from waveform_ot_torch import compat_loc_cmt as lc
@@ -1560,11 +1435,9 @@ def drivers_phase(dev, card: str) -> tuple[dict, dict]:
     from waveform_ot_torch.models.seismo import moment_tensor_from_sdr, upper_from_mxyz
 
     cpu = torch.device("cpu")
-    t_phase = time.perf_counter()
     launches, per_call = {}, {}
-    checks = PhaseChecks("drivers", card)
+    checks = PhaseChecks("drivers")
     counted, hold = checks.counted, checks.hold
-    timed = lambda name, fn, want: checks.timed(name, fn, want, DRIVER_TIMED)
 
     def ricker_data(device):
         t, w = ru.rickerwavelet(*RICKER_TRUTH, trange=DRIVER_RICKER_TRANGE, device=device)
@@ -1595,15 +1468,12 @@ def drivers_phase(dev, card: str) -> tuple[dict, dict]:
         inv = {}
         for where in ("card", "cpu"):
             ru.init()
-            t0, c0 = time.perf_counter(), held["check_s"]
             inv[where], n = counted(lambda: scipy.optimize.minimize(
                 ru.optfunc, x0, args=(rdata[where],), jac=True, method="L-BFGS-B"))
-            wall = (time.perf_counter() - t0 - (held["check_s"] - c0)) * 1e3
             res = inv[where]
             print(f"[drivers] compat_ricker scipy L-BFGS-B on the {where}: x {res.x.tolist()} "
                   f"after {res.nit} iterations, {res.nfev} evaluations ({len(ru.Wdata)} Wdata "
-                  f"records), w2 {res.fun!r}, kernel launches {n}, {wall:.1f} ms (host clock, "
-                  f"one run, the launch checks' time taken out), scipy: {res.message!r} {card}")
+                  f"records), w2 {res.fun!r}, kernel launches {n}, scipy: {res.message!r}")
             if where == "card":
                 launches["ricker_driver"] = n
                 if n != res.nfev or len(ru.Wdata) != res.nfev:
@@ -1694,57 +1564,54 @@ def drivers_phase(dev, card: str) -> tuple[dict, dict]:
         hold("Moment_LS at LOC against the true moment tensor, of its max",
              _nested_dev(mls, m6), DRIVER_MLS_RTOL)
         lc.init()
-        t0, c0 = time.perf_counter(), held["check_s"]
         res, n = counted(lambda: scipy.optimize.minimize(
             lc.optfunc_OT, m0, args=(ldata["card"],), jac=True, method="L-BFGS-B"))
-        wall = (time.perf_counter() - t0 - (held["check_s"] - c0)) * 1e3
         err = float(np.linalg.norm(res.x - np.asarray(LOC)))
         launches["loc_cmt_driver"] = n
         print(f"[drivers] compat_loc_cmt loc-only scipy L-BFGS-B on the card from LOC + DM: x "
               f"{res.x.tolist()} after {res.nit} iterations, {res.nfev} evaluations "
               f"({len(lc.opt_history_data)} records), misfit {res.fun!r}, {err:.6f} km from "
-              f"LOC, kernel launches {n}, {wall:.1f} ms (host clock, one run, the launch "
-              f"checks' time taken out), scipy: {res.message!r} {card}")
+              f"LOC, kernel launches {n}, scipy: {res.message!r}")
         if n != NR_STUDY * 3 * res.nfev:
             raise AssertionError(f"{n} kernel launches for {res.nfev} evaluations of "
                                  f"{NR_STUDY * 3} traces")
         hold("compat_loc_cmt inversion on the card, km from LOC", err, DRIVER_LOC_KM)
         lc.init()
-    checks.check_held(held)
 
-    timed("compat_ricker.optfunc 40x128", lambda: ru.optfunc(x0, rdata["card"]),
-          per_call["ricker_driver_optfunc"])
-    ru.init()
-    l2data = dict(ldata["card"], invopt=dict(invopt, mistype="L2"))
-    for name, fn, key in (
-            ("compat_loc_cmt.prop8seis, value only", lambda: lc.prop8seis(*m0, p8, device=dev),
-             "prop8seis"),
-            ("compat_loc_cmt.prop8seis, loc Jacobian", lambda: lc.prop8seis(
-                *m0, p8, drv=lc.DerivativeSwitches(x=True, y=True, z=True), device=dev),
-             "prop8seis"),
-            ("compat_loc_cmt.prop8seis, full Jacobian", lambda: lc.prop8seis(
-                *m0, p8, drv=lc.DerivativeSwitches(x=True, y=True, z=True, moment_tensor=True),
-                device=dev), "prop8seis"),
-            ("compat_loc_cmt.optfunc_OT loc-only", lambda: lc.optfunc_OT(m0, ldata["card"]),
-             "optfunc_OT"),
-            ("compat_loc_cmt.optfunc_L2 loc-only", lambda: lc.optfunc_L2(m0, l2data),
-             "optfunc_L2")):
-        timed(name, fn, per_call[f"loc_cmt_driver_{key}"])
-    lc.init()
-    print(f"[drivers] phase {time.perf_counter() - t_phase:.1f} s")
+        # each entry point once more, its launches per call asserted
+        counted(lambda: ru.optfunc(x0, rdata["card"]), per_call["ricker_driver_optfunc"],
+                "compat_ricker.optfunc 40x128")
+        ru.init()
+        l2data = dict(ldata["card"], invopt=dict(invopt, mistype="L2"))
+        for name, fn, key in (
+                ("compat_loc_cmt.prop8seis, value only", lambda: lc.prop8seis(*m0, p8, device=dev),
+                 "prop8seis"),
+                ("compat_loc_cmt.prop8seis, loc Jacobian", lambda: lc.prop8seis(
+                    *m0, p8, drv=lc.DerivativeSwitches(x=True, y=True, z=True), device=dev),
+                 "prop8seis"),
+                ("compat_loc_cmt.prop8seis, full Jacobian", lambda: lc.prop8seis(
+                    *m0, p8, drv=lc.DerivativeSwitches(x=True, y=True, z=True, moment_tensor=True),
+                    device=dev), "prop8seis"),
+                ("compat_loc_cmt.optfunc_OT loc-only", lambda: lc.optfunc_OT(m0, ldata["card"]),
+                 "optfunc_OT"),
+                ("compat_loc_cmt.optfunc_L2 loc-only", lambda: lc.optfunc_L2(m0, l2data),
+                 "optfunc_L2")):
+            counted(fn, per_call[f"loc_cmt_driver_{key}"], name)
+        lc.init()
+    checks.check_held(held)
     return launches, per_call
 
 
-def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
+def native_phase(dev) -> tuple[dict, dict]:
     """Phase 14: the native slice on the card. 14a the fast-marching route of
     compat.waveformFP.calcpdf against the exact field at the FingerprintLib
     demo's full size; 14b the POT bridges (exact EMD, entropic Sinkhorn)
     against the LP oracle, the closed form and the CPU; 14c the zoom L-BFGS:
     the Ricker on-device inversion in f64 against the CPU's, and the
     64-start far-field study in f32; 14d top_device_ops on loc64 f32. Every
-    kernel launch outside the timing runs is held bit for bit against the
-    plain field (held_launches); launches are counted and asserted per call.
-    Returns the path's launches and the launches per call."""
+    kernel launch of 14a-c is held bit for bit against the plain field
+    (held_launches); launches are counted and asserted per call. Returns the
+    path's launches and the launches per call."""
     import types
 
     import scipy.optimize
@@ -1754,16 +1621,13 @@ def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
         InvOptions, loc_cmt_misfit, loc_cmt_value_and_grad, minimize_lbfgs,
         minimize_multi_start, ricker_misfit,
     )
-    from waveform_ot_torch.ops import cuda_distance
     from waveform_ot_torch.ops.validate import build_linprog
     from waveform_ot_torch.utils.profiling import top_device_ops
 
     cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
-    t_phase = time.perf_counter()
     launches, per_call = {}, {}
-    checks = PhaseChecks("native", card)
+    checks = PhaseChecks("native")
     counted, hold = checks.counted, checks.hold
-    timed = lambda name, fn, want: checks.timed(name, fn, want, NATIVE_TIMED)
 
     t, rf = rf_waveform()
     grid = rf_grid6()
@@ -1809,9 +1673,7 @@ def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
                       for w in fingerprint_pdfs(tm, [pred, obs], pgrid, RF_LAMBDA, cpu)]}
         emd = {}
         for dist, p in (("W2", 2), ("W1", 1)):
-            t0 = time.perf_counter()
             emd[dist] = compat.wasserPOT(*ot["card"], dist)[0]
-            emd_s = time.perf_counter() - t0
             flat = [types.SimpleNamespace(pdf=o.pdf.ravel(), x=o.x.reshape(-1, 2))
                     for o in ot["card"]]
             lp_default = compat.Wasser_LinProg(*flat, distfunc=dist)[0]
@@ -1823,7 +1685,7 @@ def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
             if not lp.success:
                 raise AssertionError(f"the {dist} LP oracle failed: {lp.message}")
             print(f"[native] wasserPOT {dist}, {POT_GRID[0]}x{POT_GRID[1]} fingerprints: "
-                  f"{emd[dist]!r} ({emd_s:.3f} s, one run); LP at feasibility "
+                  f"{emd[dist]!r}; LP at feasibility "
                   f"{LP_FEASIBILITY:g} {lp.fun!r}; Wasser_LinProg at HiGHS's defaults "
                   f"{lp_default!r}")
             hold(f"wasserPOT {dist} vs the LP oracle at feasibility {LP_FEASIBILITY:g}, relative",
@@ -1856,15 +1718,12 @@ def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
                                      ("cpu", cpu, ZOOM_RICKER_HELD)):
             rp, rc, x0 = build_ricker_inversion(f64, device)
             fun = CountedObjective(lambda ms, rp=rp, rc=rc: ricker_misfit(ms, rp, rc))
-            t0, c0 = time.perf_counter(), held["check_s"]
             res, n = counted(lambda: minimize_lbfgs(fun, x0, max_iter=iters))
-            wall = (time.perf_counter() - t0 - (held["check_s"] - c0)) * 1e3
             inv[where, iters], calls[where, iters] = res, fun.value_grads
             print(f"[native] zoom minimize_lbfgs Ricker f64 on the {where}, max_iter {iters}: x "
                   f"{res.x.tolist()} after {int(res.n_iter)} iterations, {fun.value_grads} "
                   f"value+grad calls ({fun.values} value-only), w2 {res.fun.item()!r}, |g| "
-                  f"{res.grad_norm.item():.3e}, kernel launches {n}, {wall:.1f} ms (host clock, "
-                  f"one run, the launch checks' time taken out) {card}")
+                  f"{res.grad_norm.item():.3e}, kernel launches {n}")
             if where == "card":
                 if n != fun.value_grads or fun.values:
                     raise AssertionError(f"zoom Ricker: {n} launches for {fun.value_grads} "
@@ -1888,11 +1747,10 @@ def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
         # 14c(ii). the 64-start far-field study through the zoom, float32
         _, cfg11, prob11 = build_loc64_problem(NR_STUDY, f32, dev)
         opts = InvOptions(loc=True, cmt=False, mistype="OT")
-        misfit11 = lambda ms: loc_cmt_misfit(ms, prob11, opts, cfg11)
         starts = study_starts(f32, dev)
-        solve = lambda f: minimize_multi_start(f, starts, max_iter=30, tol=3e-5, method="zoom")
-        fun = CountedObjective(misfit11)
-        res, n = counted(lambda: solve(fun))
+        fun = CountedObjective(lambda ms: loc_cmt_misfit(ms, prob11, opts, cfg11))
+        res, n = counted(lambda: minimize_multi_start(fun, starts, max_iter=30, tol=3e-5,
+                                                      method="zoom"))
         err = torch.linalg.vector_norm(res.x.double() - torch.tensor(LOC, dtype=f64, device=dev),
                                        dim=1)
         launches["native_zoom_study"] = n
@@ -1900,37 +1758,26 @@ def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
         if n != fun.value_grads or fun.values:
             raise AssertionError(f"zoom study: {n} launches for {fun.value_grads} value+grad "
                                  f"calls and {fun.values} value calls")
-    checks.check_held(held)
 
-    # float32 sums by atomics may end a timed study after other calls: count them
-    tfun = CountedObjective(misfit11)
-    torch.cuda.synchronize()
-    cuda_distance.LAUNCHES = 0
-    study_ms = host_median_ms(lambda: solve(tfun), n=STUDY_TIMED, warm=0)
-    torch.cuda.synchronize()
-    if cuda_distance.LAUNCHES != tfun.value_grads or tfun.values:
-        raise AssertionError(f"timed zoom studies: {cuda_distance.LAUNCHES} launches for "
-                             f"{tfun.value_grads} value+grad and {tfun.values} value calls")
-    print(f"[native] zoom study: {N_STARTS} starts, {NR_STUDY} stations, f32: {study_ms:.4f} ms "
-          f"per study (host clock, synchronized, median of {STUDY_TIMED}) against "
-          f"{batched_study_ms:.4f} ms for method 'batched' (phase 6, this run); iterations max "
+        # the calls of 14a and 14b once more, their launches per call asserted
+        counted(lambda: fps["FMM"].calcpdf(lambdav=RF_LAMBDA, method="FMM"), 0,
+                f"calcpdf(FMM) {RF_NU}x{RF_NTG}")
+        counted(lambda: fps["Enumerate"].calcpdf(lambdav=RF_LAMBDA, method="Enumerate"), 1,
+                f"calcpdf(Enumerate) {RF_NU}x{RF_NTG}")
+        counted(lambda: compat.wasserPOT(*ot["card"], "W2"), 0,
+                f"wasserPOT W2 {POT_GRID[0]}x{POT_GRID[1]}")
+        counted(lambda: compat.sinkhornPOT(*ot["card"], "W2", gamma=SINKHORN_POT_GAMMAS[-1]), 0,
+                f"sinkhornPOT W2 {POT_GRID[0]}x{POT_GRID[1]} gamma {SINKHORN_POT_GAMMAS[-1]:g}")
+    checks.check_held(held)
+    print(f"[native] zoom study: {N_STARTS} starts, {NR_STUDY} stations, f32: iterations max "
           f"{int(res.n_iter.max())}, median {float(res.n_iter.float().median()):g}; batched "
-          f"value+grad calls {fun.value_grads} (timed runs {tfun.value_grads / STUDY_TIMED:g} "
-          f"per study), kernel launches {launches['native_zoom_study']}; "
+          f"value+grad calls {fun.value_grads}, kernel launches {launches['native_zoom_study']}; "
           f"distance to the source max {err.max().item():.6f} km, median "
-          f"{err.median().item():.6f} km (bound {STUDY_RADIUS_KM:g}) {card}")
+          f"{err.median().item():.6f} km (bound {STUDY_RADIUS_KM:g})")
     if not bool((err < STUDY_RADIUS_KM).all()):
         far = torch.nonzero(err >= STUDY_RADIUS_KM).flatten().tolist()
         raise AssertionError(f"zoom study: starts {far} end up to {err.max().item()} km from "
                              f"the source")
-    timed(f"calcpdf(FMM) {RF_NU}x{RF_NTG}",
-          lambda: fps["FMM"].calcpdf(lambdav=RF_LAMBDA, method="FMM"), 0)
-    timed(f"calcpdf(Enumerate) {RF_NU}x{RF_NTG}",
-          lambda: fps["Enumerate"].calcpdf(lambdav=RF_LAMBDA, method="Enumerate"), 1)
-    timed(f"wasserPOT W2 {POT_GRID[0]}x{POT_GRID[1]}",
-          lambda: compat.wasserPOT(*ot["card"], "W2"), 0)
-    timed(f"sinkhornPOT W2 {POT_GRID[0]}x{POT_GRID[1]} gamma {SINKHORN_POT_GAMMAS[-1]:g}",
-          lambda: compat.sinkhornPOT(*ot["card"], "W2", gamma=SINKHORN_POT_GAMMAS[-1]), 0)
 
     # 14d. the profiler's view of loc64 f32: the value+grad call (the headline;
     # there the kernel is ~5% of device time, near the fifth op) and its
@@ -1942,18 +1789,16 @@ def native_phase(dev, card: str, batched_study_ms: float) -> tuple[dict, dict]:
             ("value", lambda: loc_cmt_misfit(m64, prob64, opts, cfg64), True)):
         ranked, _ = counted(lambda: top_device_ops(call, top=ALL_OPS), 2,
                             f"top_device_ops on loc64 {what} (a warm-up call and a profiled one)")
-        for ms, name in ranked[:TOP_OPS]:
-            print(f"[native] top_device_ops loc64 f32 {what}: {ms:.4f} ms  {name[:110]}")
+        for _, name in ranked[:TOP_OPS]:
+            print(f"[native] top_device_ops loc64 f32 {what}: {name[:110]}")
         rank = [i for i, (_, name) in enumerate(ranked) if KERNEL_NAME in name]
         print(f"[native] top_device_ops loc64 f32 {what}: the distance-field kernel ranks "
-              f"{rank[0] + 1 if rank else None} of {len(ranked)} device ops by time"
-              + (f", {ranked[rank[0]][0]:.4f} ms" if rank else ""))
+              f"{rank[0] + 1 if rank else None} of {len(ranked)} device ops by time")
         if not rank:
             raise AssertionError(f"the profile of loc64 {what} holds no distance-field kernel")
         if top_five and rank[0] >= TOP_OPS:
             raise AssertionError(f"the distance-field kernel is not among loc64 {what}'s top "
                                  f"{TOP_OPS} device ops")
-    print(f"[native] phase {time.perf_counter() - t_phase:.1f} s")
     return launches, per_call
 
 
@@ -1999,7 +1844,7 @@ def layered_check_f32(got, ref):
             f"{cos:.9f} (bound > {GRAD_COS_F32}), norm ratio {ratio:.9f} (bound (0.5, 2))")
 
 
-def parallel_phase(dev, card: str) -> tuple[dict, dict]:
+def parallel_phase(dev) -> tuple[dict, dict]:
     """Phase 15: the parallel layer (waveform_ot_torch.parallel and the two
     sharded inversion entry points) at the full width of the problems above,
     on the mesh of the visible cards ("mesh1" on one card) and on
@@ -2026,10 +1871,9 @@ def parallel_phase(dev, card: str) -> tuple[dict, dict]:
     Each sharded call against the same call unsharded on the card (f64:
     value 1e-12, gradient 1e-11 of max |g|, the layered case 1e-9, JAX's
     contract; f32: the phase's card-vs-CPU bars), exactly one kernel launch
-    per shard per evaluation (asserted), every launch outside the timing runs
-    held bit for bit against the plain field; then a host-clock median of 3
-    per call, unsharded and on each mesh. Returns the launches of each
-    counted run and the launches per call."""
+    per shard per evaluation (asserted), every launch held bit for bit
+    against the plain field. Returns the launches of each counted run and
+    the launches per call."""
     from waveform_ot_torch import parallel as par
     from waveform_ot_torch.inversion import (
         InvOptions, LocCMTObjective, loc_cmt_misfit, loc_cmt_value_and_grad, misfit_grid,
@@ -2042,10 +1886,9 @@ def parallel_phase(dev, card: str) -> tuple[dict, dict]:
     )
     from waveform_ot_torch.ops.marginal import marg_wasserstein_value
 
-    t_phase = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
     opts = InvOptions(loc=True, cmt=False, mistype="OT")
-    chk = PhaseChecks("parallel", card)
+    chk = PhaseChecks("parallel")
     ncards = torch.cuda.device_count()
     meshes = {"mesh1": par.make_mesh(), f"mesh{PAR_SHARDS}": par.make_mesh(PAR_SHARDS, device=dev)}
     meshes_2d = {"mesh1": par.make_mesh_2d(1, ncards),
@@ -2222,30 +2065,7 @@ def parallel_phase(dev, card: str) -> tuple[dict, dict]:
                 raise AssertionError(f"study {label}: a start ends {err.max().item()} km "
                                      f"from the source")
     chk.check_held(held)
-    print(f"[parallel] kernel launches by device outside the timing runs: "
-          f"{cuda_distance.LAUNCHES_BY_DEVICE}")
-    checked_s = time.perf_counter() - t_phase
-
-    # timing runs
-    ms_by = {}
-    for name, unsharded, by_mesh, _ in cases:
-        ms_by[name, "unsharded"] = chk.timed(f"{name} unsharded", unsharded, 1, PAR_TIMED)
-        for label, (fn, shards) in by_mesh.items():
-            ms_by[name, label] = chk.timed(f"{name} {label}", fn, shards, PAR_TIMED)
-    for label, solve in study.items():
-        fun = CountedObjective(follow)
-        torch.cuda.synchronize()
-        cuda_distance.LAUNCHES = 0
-        ms = host_median_ms(lambda: solve(fun), n=PAR_TIMED, warm=0)
-        evals = fun.values + fun.value_grads
-        print(f"[timing] parallel study {label}: {ms:.4f} ms per study (host clock, "
-              f"synchronized, median of {PAR_TIMED}); {evals} batched evaluations and "
-              f"{cuda_distance.LAUNCHES} kernel launches over the {PAR_TIMED} studies {card}")
-        if cuda_distance.LAUNCHES != evals:
-            raise AssertionError(f"study {label} timing: {cuda_distance.LAUNCHES} launches "
-                                 f"for {evals} evaluations")
-    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s ({checked_s:.1f} s before "
-          f"the timing runs)")
+    print(f"[parallel] kernel launches by device: {cuda_distance.LAUNCHES_BY_DEVICE}")
     return launches, per_call
 
 
@@ -2268,21 +2088,19 @@ def examples_phase(dev, card: str, variant) -> tuple[dict, dict, list]:
     script's own assertions hold; its kernel launches are counted and
     asserted (one per objective evaluation, scan or surface, none for the
     point masses or a least-squares moment tensor); every launch outside the
-    scaling study's timing runs is held bit for bit against the plain field
+    scaling study's run is held bit for bit against the plain field
     (held_launches; the study's calls are held by the same calls at its
-    shapes outside its timing); where the same run on the CPU is cheap (the
+    shapes outside its run); where the same run on the CPU is cheap (the
     point masses, the migration self-test, the derivative walkthrough, the
     Ricker scipy inversion, the receiver function's fields) the card is held
-    against it. Prints each script's host wall time, and loc1024's
-    value+grad time, traces/s and the kernel's device time and share at its
-    3,072 traces. Returns the launches by script, the launches per
-    evaluation or per run, and loc1024's by_shape row."""
+    against it. Prints the kernel's device time and share at loc1024's 3,072
+    traces. Returns the launches by script, the launches per evaluation or
+    per run, and loc1024's by_shape row."""
     from waveform_ot_torch.ops import DistanceField, cuda_distance, distance_field_torch
 
     cpu = "cpu"
-    t_phase = time.perf_counter()
     launches, per_call = {}, {}
-    checks = PhaseChecks("examples", card)
+    checks = PhaseChecks("examples")
     counted, hold = checks.counted, checks.hold
     mods = {name: example(name) for name in (
         "point_mass_demo", "reference_migration", "ricker_inversion", "ricker_misfit_surfaces",
@@ -2295,16 +2113,12 @@ def examples_phase(dev, card: str, variant) -> tuple[dict, dict, list]:
 
     with held_launches("examples") as held:
         def on_card(key, name, want=None, call=None, how=None, **kw):
-            """run(dev, **kw), or ``call()`` described by ``how``, counted
-            and timed (host clock, the checks' time taken out): (result,
-            launches)."""
-            t0, c0 = time.perf_counter(), held["check_s"]
+            """run(dev, **kw), or ``call()`` described by ``how``, counted:
+            (result, launches)."""
             r, n = counted(call or (lambda: mods[name].run(dev, **kw)), want, f"examples {key}")
-            wall = time.perf_counter() - t0 - (held["check_s"] - c0)
             launches[f"examples_{key}"] = n
             how = how or "run(" + ", ".join(f"{k}={v!r}" for k, v in kw.items()) + ")"
-            print(f"[examples] {key}: {how} on the card in {wall:.3f} s (host clock, one run, "
-                  f"the launch checks' time taken out), kernel launches {n} {card}")
+            print(f"[examples] {key}: {how} on the card, kernel launches {n}")
             return r, n
 
         # 1. the point masses: no distance field
@@ -2416,33 +2230,25 @@ def examples_phase(dev, card: str, variant) -> tuple[dict, dict, list]:
                                      f"evaluations")
             per_call[f"examples_{key}"] = (n - 1) / r["OT"]["evaluations"]
 
-        # 9. the scaling study's shapes, held outside its timing runs
+        # 9. the scaling study's shapes, held outside its run
         sc = mods["scaling_study"]
         _, n = counted(lambda: [sc.time_value_and_grad(nr, dev, n_iter=1) for nr in SCALING_SIZES]
                        + [sc.inversions(k, dev) for k in (16, 32)])
     checks.check_held(held)
 
-    # 9. the scaling study, timed (its launches counted, not held)
-    t0 = time.perf_counter()
+    # 9. the scaling study (its launches counted, not held)
     r, n = counted(lambda: sc.run(dev))
-    wall = time.perf_counter() - t0
     evals = sum(o["evaluations"] for o in r["inversions"])
     want = SCALING_CALLS * len(SCALING_SIZES) + len(r["inversions"]) + evals
-    print(f"[examples] scaling_study: run() on the card in {wall:.3f} s (host clock, one run), "
-          f"kernel launches {n} ({SCALING_CALLS} per size, 1 per inversion problem and {evals} "
-          f"batched evaluations) {card}")
+    print(f"[examples] scaling_study: run() on the card, kernel launches {n} ({SCALING_CALLS} per "
+          f"size, 1 per inversion problem and {evals} batched evaluations)")
     if n != want:
         raise AssertionError(f"scaling_study: {n} launches, not {want}")
     launches["examples_scaling_study"] = n
     per_call["examples_scaling_study"] = 1.0
-    for s in r["value_and_grad"]:
-        print(f"[examples] loc{s['stations']}: value+grad {s['seconds'] * 1e3:.4f} ms/call (host "
-              f"clock, synchronized, mean of 30) = {s['traces_per_s']:.1f} traces/s, "
-              f"{s['traces']} traces, f32 {card}")
     for o in r["inversions"]:
-        print(f"[examples] {o['k']} simultaneous inversions: {o['seconds'] * 1e3:.4f} ms "
-              f"({o['ms_per_inversion']:.4f} ms/inversion), {100 * o['converged']:.0f}% within "
-              f"2 km, median iterations {o['median_iters']} {card}")
+        print(f"[examples] {o['k']} simultaneous inversions: {100 * o['converged']:.0f}% within "
+              f"2 km, median iterations {o['median_iters']}")
 
     # loc1024's kernel: bit for bit the plain field, its device time and share
     loc, cfg, prob = build_loc64_problem(1024, torch.float32, dev)
@@ -2456,30 +2262,29 @@ def examples_phase(dev, card: str, variant) -> tuple[dict, dict, list]:
     k = device_ms(lambda: cuda_distance.distance_field_cuda(*args), launches=BACK_TO_BACK,
                   samples=SAMPLES)
     plain = device_ms(lambda: distance_field_torch(*args), launches=PLAIN_BACK_TO_BACK)
-    bound, bound_by = kernel_bound(*args)
+    b, nt = args[0].shape[:2]
+    bound = kernel_bound_s(b, nt, args[2].shape[1], args[1].shape[1], "float32") * 1e3
     s_split, ptx = variant(args)
-    row = {"shape": "loc1024", "dtype": "float32", "traces": args[0].shape[0], "S": s_split,
-           "ms": k, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-           "share": bound / k}
-    print(f"[timing] distance field loc1024 float32 B={args[0].shape[0]} S={s_split}: kernel "
+    row = {"shape": "loc1024", "dtype": "float32", "traces": b, "S": s_split,
+           "ms": k, "plain_ms": plain, "bound_ms": bound, "share": bound / k}
+    print(f"[timing] distance field loc1024 float32 B={b} S={s_split}: kernel "
           f"{k:.6f} ms (device, {BACK_TO_BACK} back-to-back launches, median of {SAMPLES}), "
-          f"bound {bound:.6f} ms ({bound_by}), share {bound / k:.4f}, plain {plain:.4f} ms "
+          f"bound {bound:.6f} ms, share {bound / k:.4f}, plain {plain:.4f} ms "
           f"({PLAIN_BACK_TO_BACK} back-to-back calls); bit-identical {same}, "
           f"{json.dumps(rep)}; ptxas: {ptx} {card}")
     if not same:
         raise AssertionError("the kernel at loc1024 differs from the plain field")
-    print(f"[examples] phase {time.perf_counter() - t_phase:.1f} s")
     return launches, per_call, [row]
 
 
-def entry_phase(dev, card: str) -> tuple[dict, dict]:
+def entry_phase(dev) -> tuple[dict, dict]:
     """Phase 17: the system's own entry points (waveform_ot_torch.entry,
     the port's __graft_entry__) on the card:
 
       a. entry() at JAX's sizes (4 stations, nt 61, nk 96, f32): value+grad
          in exactly one kernel launch, against entry(device="cpu",
          dtype=float64) at the layered f32 bars (value 1e-3, gradient cosine
-         > 0.97, norm ratio in (0.5, 2)); host ms, median of 20;
+         > 0.97, norm ratio in (0.5, 2));
       b. dryrun_multichip(4) and dryrun_multichip(8) on shards of the card:
          every step finite (the function checks), each step's value and
          gradient against dryrun_multichip(n, device="cpu") (f32 both) at the
@@ -2492,18 +2297,17 @@ def entry_phase(dev, card: str) -> tuple[dict, dict]:
          79x61, f32) and the station-sharded layered step at the bench's
          width with 12 stations (PAR_NR_LAYERED; nt 61, nk 512, f32), each
          against its unsharded step at the f32 bars, one launch per shard
-         (asserted), peak device memory; host ms per step, median of 20.
+         (asserted), peak device memory.
 
-    Every kernel launch outside the timing runs is held bit for bit against
-    the plain field (held_launches). Returns the launches of each counted
-    run and the launches per call."""
+    Every kernel launch is held bit for bit against the plain field
+    (held_launches). Returns the launches of each counted run and the
+    launches per call."""
     from waveform_ot_torch import entry as E
     from waveform_ot_torch import parallel as par
     from waveform_ot_torch.models import make_layered_forward
 
-    t_phase = time.perf_counter()
     f32 = torch.float32
-    chk = PhaseChecks("entry", card)
+    chk = PhaseChecks("entry")
     launches, per_call = {}, {}
 
     far_check = vg_check(VALUE_RTOL_F32, GRAD_TOL_F32)
@@ -2570,7 +2374,6 @@ def entry_phase(dev, card: str) -> tuple[dict, dict]:
                                          f"launches on {n_dev} shards")
 
         # c. the Adam steps at full width
-        peaks, m1s = {}, {}
         for name, (start, by, check) in adam_cases.items():
             first = {}
             for label, (misfit, shards) in by.items():
@@ -2580,42 +2383,28 @@ def entry_phase(dev, card: str) -> tuple[dict, dict]:
                 torch.cuda.reset_peak_memory_stats()
                 (v, g), n = chk.counted(lambda: E.adam_step(misfit, m, opt), want=shards,
                                         what=f"{name} {label}")
-                peaks[name, label] = torch.cuda.max_memory_allocated() / 1e9
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
                 first[label] = (v, g, m.detach().clone())
                 launches[f"entry_{name}_{label}"] = per_call[f"entry_{name}_{label}"] = n
                 if not (np.isfinite(v.item()) and bool(torch.isfinite(g).all())
                         and bool(torch.isfinite(m).all())):
                     raise AssertionError(f"{name} {label}: non-finite step")
+                what = "kernel launches"
                 if label != "unsharded":
                     rv, rg, rm = first["unsharded"]
-                    what = check((v, g), (rv, rg)) + "; " + m1_check(m, rm)
-                    m1s[name, label] = _rel(m, rm)
-                    print(f"[entry] {name} {label} ({shards} shards) vs unsharded: {what}; "
-                          f"kernel launches {n}")
+                    what = (f"vs unsharded: {check((v, g), (rv, rg))}; {m1_check(m, rm)}; "
+                            f"kernel launches")
+                print(f"[entry] {name} {label} ({shards} shards) {what} {n}; peak device memory "
+                      f"{peak_gb:.3f} GB")
             print(f"[entry] {name}: m0 {start.tolist()} -> m1 {first['unsharded'][2].tolist()} "
                   f"(unsharded), value {first['unsharded'][0].item()!r}")
             del first
             torch.cuda.empty_cache()
     chk.check_held(held)
-    checked_s = time.perf_counter() - t_phase
-
-    # timing runs
-    chk.timed("entry() value+grad", lambda: fn(m0, eprob), 1, N_TIMED)
-    for name, (start, by, _) in adam_cases.items():
-        for label, (misfit, shards) in by.items():
-            m = start.clone().requires_grad_(True)
-            opt = E.adam(m)
-            ms = chk.timed(f"{name} {label}", lambda: E.adam_step(misfit, m, opt), shards, N_TIMED)
-            print(f"[entry] {name} {label}: {ms:.4f} ms per Adam step (host clock, synchronized, "
-                  f"median of {N_TIMED}), kernel launches per step {shards}, peak device memory "
-                  f"{peaks[name, label]:.3f} GB, m1 vs unsharded "
-                  f"{m1s.get((name, label), 0.0):.3e} of max|m| {card}")
-    print(f"[entry] phase {time.perf_counter() - t_phase:.1f} s ({checked_s:.1f} s before the "
-          f"timing runs)")
     return launches, per_call
 
 
-def bench_phase(card: str) -> tuple[dict, dict]:
+def bench_phase() -> tuple[dict, dict]:
     """Phase 18: the port's benchmark program, ``python -m
     waveform_ot_torch.bench``, run as a subprocess on the card (its ten
     stages each in a process of its own, budget BENCH_BUDGET_S). Its stderr
@@ -2626,7 +2415,6 @@ def bench_phase(card: str) -> tuple[dict, dict]:
     stderr) 1 per call, 1 per batched evaluation for the two studies. Returns
     the launches ({"bench": every stage's}) and the launches per call or
     evaluation by stage."""
-    t_phase = time.perf_counter()
     env = {**os.environ, "WOT_BENCH_BUDGET_S": str(BENCH_BUDGET_S)}
     proc = subprocess.Popen([sys.executable, "-m", "waveform_ot_torch.bench"], cwd=REPO,
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -2669,23 +2457,14 @@ def bench_phase(card: str) -> tuple[dict, dict]:
     for name in BENCH_STAGES:
         key = "launches_per_evaluation" if name in BENCH_STUDIES else "launches_per_call"
         per_call[f"bench_{name}"] = raw[name][key]
-        if name in BENCH_STUDIES:
-            what = (f"{raw[name]['per'] * 1e3:.4f} ms per study, "
-                    f"{raw[name]['evaluations']:g} batched evaluations per study")
-        elif name == "f32dev":
-            what = f"value deviation {raw[name]['dv']:.3e}, gradient {raw[name]['dg']:.3e}"
-        else:
-            what = f"{raw[name]['per'] * 1e3:.4f} ms per call"
-        print(f"[bench] {name}: {what} (host clock, synchronized, mean after a warm call), "
-              f"{key} {raw[name][key]:g}, launches {raw[name]['launches']} {card}")
+        print(f"[bench] {name}: {key} {raw[name][key]:g}, launches {raw[name]['launches']}")
         if raw[name][key] != 1:
             raise AssertionError(f"bench {name}: {key} {raw[name][key]}, not 1")
     launches = {"bench": sum(r["launches"] for r in raw.values())}
-    print(f"[bench] phase {time.perf_counter() - t_phase:.1f} s")
     return launches, per_call
 
 
-def surface_phase(dev, card: str) -> tuple[dict, dict]:
+def surface_phase(dev) -> tuple[dict, dict]:
     """Phase 19: the parts of the JAX package's public surface the port
     binds as the JAX package does (tests/test_torch_surface.py holds the
     whole surface on the CPU), on the card:
@@ -2694,8 +2473,7 @@ def surface_phase(dev, card: str) -> tuple[dict, dict]:
          on the time and amplitude marginals of phase 12's 800x600 RF
          fingerprint and its copy delayed RF_SHIFT s (float64, both
          fingerprints in one kernel launch): W1, W2 and W12 each within
-         SURFACE_RTOL of the same call on those marginals on the CPU; host ms
-         per W12 call;
+         SURFACE_RTOL of the same call on those marginals on the CPU;
       b. ``utils.top_device_ops`` on loc64 f32 value+grad with ``trace_dir``:
          its trace file is left there, non-empty and naming the kernel, and
          the kernel is in the ranking (a warm-up call and a profiled one: 2
@@ -2712,11 +2490,9 @@ def surface_phase(dev, card: str) -> tuple[dict, dict]:
     from waveform_ot_torch.inversion import InvOptions, loc_cmt_value_and_grad
     from waveform_ot_torch.ops import FingerprintSpec, fingerprint_density, make_window
 
-    t_phase = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
-    chk = PhaseChecks("surface", card)
+    chk = PhaseChecks("surface")
     launches, per_call = {}, {}
-    cpu = torch.device("cpu")
 
     t0, t1, u0, u1, nu, ntg = rf_grid6()
     win = make_window(t0, t1, u0, u1, dtype=f64, device=dev)
@@ -2785,11 +2561,6 @@ def surface_phase(dev, card: str) -> tuple[dict, dict]:
             if not all(same) or out["step"] != 19:
                 raise AssertionError(f"the checkpoint round trip ({how}) changed {same}")
     chk.check_held(held)
-    src, tgt = margs["time"]
-    ms = host_median_ms(lambda: ops.wasser(src, tgt, "W12"), n=SURFACE_TIMED, warm=1)
-    print(f"[timing] surface ops.wasser W12 on the {ntg}-point time marginals: {ms:.4f} ms/call "
-          f"(host clock, synchronized, median of {SURFACE_TIMED}) {card}")
-    print(f"[surface] phase {time.perf_counter() - t_phase:.1f} s")
     return launches, per_call
 
 
@@ -2819,9 +2590,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     lib = _build.library_path("distance_field")
     how = "reused" if lib.exists() else "built"
-    t0 = time.perf_counter()
     cuda_distance._library()
-    print(f"[setup] {how} {lib.relative_to(REPO)} in {time.perf_counter() - t0:.2f} s")
+    print(f"[setup] {how} {lib.relative_to(REPO)}")
     ptxas = ptxas_by_variant(_build.ptxas_log("distance_field"))
     spilling = [k for k, v in ptxas.items() if re.search(r"[1-9]\d* bytes spill", v)]
     print(f"[setup] ptxas -v: {len(ptxas)} kernel variants (dtype, S), "
@@ -2902,14 +2672,8 @@ def main() -> int:
     if w2_err > RICKER_W2_TOL or g_err > RICKER_GRAD_TOL:
         raise AssertionError("Ricker objective deviates from the golden values")
 
-    # 5. timings
+    # 5. the kernel alone, timed on the device
     card = f"[{smi}]"
-    _, _, prob64 = build_loc64_problem(64, torch.float64, dev)
-    m64 = m32.double()
-    for name, fn in (("f32", lambda: loc_cmt_value_and_grad(m32, prob32, opts, cfg)),
-                     ("f64", lambda: loc_cmt_value_and_grad(m64, prob64, opts, cfg))):
-        print(f"[timing] loc64 value+grad {name}: {host_median_ms(fn, n=N_TIMED):.4f} ms/call "
-              f"(host clock, synchronized, median of {N_TIMED}) {card}")
     rows = []
     for dt, by_name in shapes.items():
         for name, args in by_name.items():
@@ -2924,14 +2688,15 @@ def main() -> int:
                 plain = device_ms(lambda: distance_field_torch(*args),
                                   launches=PLAIN_BACK_TO_BACK)
                 plain_how = f"{PLAIN_BACK_TO_BACK} back-to-back calls"
-            bound, bound_by = kernel_bound(*args)
+            b, nt = args[0].shape[:2]
+            bound = kernel_bound_s(b, nt, args[2].shape[1], args[1].shape[1], str(dt)[6:]) * 1e3
             s, ptx = variant(args)
-            rows.append({"shape": name, "dtype": str(dt)[6:], "traces": args[0].shape[0],
+            rows.append({"shape": name, "dtype": str(dt)[6:], "traces": b,
                          "S": s, "ms": k, "plain_ms": plain, "bound_ms": bound,
-                         "bound_by": bound_by, "share": bound / k})
-            print(f"[timing] distance field {name} {str(dt)[6:]} B={args[0].shape[0]} "
+                         "share": bound / k})
+            print(f"[timing] distance field {name} {str(dt)[6:]} B={b} "
                   f"S={s}: kernel {k:.6f} ms (device, {n_k} back-to-back launches, median "
-                  f"of {SAMPLES}), bound {bound:.6f} ms ({bound_by}), share "
+                  f"of {SAMPLES}), bound {bound:.6f} ms, share "
                   f"{bound / k:.4f}, plain {plain:.4f} ms ({plain_how}); ptxas: {ptx} {card}")
 
     # 6. the 64-start study, on-device and host-state solvers
@@ -2939,7 +2704,7 @@ def main() -> int:
     misfit11 = lambda ms: loc_cmt_misfit(ms, prob11, opts, cfg11)
     loc_d = torch.tensor(LOC, dtype=torch.float64, device=dev)
     starts = study_starts(torch.float32, dev)
-    per_eval, study_ms_by = {}, {}
+    per_eval = {}
     for name, solve in (
             ("multistart", lambda f: minimize_multi_start(f, starts, max_iter=30, tol=3e-5)),
             ("multistart_host", lambda f: minimize_lbfgs_batched_host(
@@ -2954,14 +2719,11 @@ def main() -> int:
         per_eval[name] = launches[name] / evals
         err = torch.linalg.vector_norm(res.x.double() - loc_d, dim=1)
         n_failed = int(res.ls_failed.sum())
-        study_ms = study_ms_by[name] = host_median_ms(lambda: solve(misfit11), n=STUDY_TIMED,
-                                                      warm=0)
-        print(f"[{name}] {N_STARTS} starts, {NR_STUDY} stations, f32: {study_ms:.4f} ms "
-              f"per study (host clock, synchronized, median of {STUDY_TIMED}); outer "
+        print(f"[{name}] {N_STARTS} starts, {NR_STUDY} stations, f32: outer "
               f"iterations {fun.value_grads - 1}, line-search trials {fun.values}, batched "
               f"evaluations {evals}, kernel launches {launches[name]}; ls_failed lanes "
               f"{n_failed}; distance to the source max {err.max().item():.6f} km, median "
-              f"{err.median().item():.6f} km (bound {STUDY_RADIUS_KM:g}) {card}")
+              f"{err.median().item():.6f} km (bound {STUDY_RADIUS_KM:g})")
         if launches[name] != evals:
             raise AssertionError(f"{name}: {launches[name]} kernel launches for {evals} "
                                  f"batched evaluations")
@@ -2988,14 +2750,9 @@ def main() -> int:
     if sv.shape != (len(nodes),) or sg.shape != nodes.shape or not (
             bool(torch.isfinite(sv).all()) and bool(torch.isfinite(sg).all())):
         raise AssertionError(f"scan result of shapes {sv.shape} {sg.shape} is not finite")
-    scan_ms = host_median_ms(lambda: loc_cmt_value_and_grad(nodes, prob11, opts, cfg11),
-                             n=STUDY_TIMED, warm=0)
-    krow = next(r for r in rows if r["shape"] == "scan" and r["dtype"] == "float32")
-    print(f"[scan] {len(nodes)} nodes x {NR_STUDY} stations x 3 = {krow['traces']} traces, "
-          f"f32, value+grad in one call: {scan_ms:.4f} ms per scan (host clock, "
-          f"synchronized, median of {STUDY_TIMED}); kernel launches {launches['scan']}; "
-          f"peak device memory {peak_gb:.3f} GB; kernel {krow['ms']:.6f} ms (device), "
-          f"bound {krow['bound_ms']:.6f} ms, share {krow['share']:.4f} {card}")
+    print(f"[scan] {len(nodes)} nodes x {NR_STUDY} stations x 3 = {3 * NR_STUDY * len(nodes)} "
+          f"traces, f32, value+grad in one call: kernel launches {launches['scan']}; "
+          f"peak device memory {peak_gb:.3f} GB")
     _, cfg11c, prob11c = build_loc64_problem(NR_STUDY, torch.float64, cpu)
     pick = np.sort(np.random.default_rng(7).choice(len(nodes), SCAN_CHECKED, replace=False))
     worst_v = worst_g = 0.0
@@ -3020,16 +2777,13 @@ def main() -> int:
         fn = trace.wrap_objective(lambda mm, rp=rp, rc=rc: ricker_value_and_grad(mm, rp, rc))
         torch.cuda.synchronize()
         cuda_distance.LAUNCHES = 0
-        t0 = time.perf_counter()
         res = inv[where] = minimize_scipy(fn, x0, callback=trace.scipy_callback())
-        wall_ms = (time.perf_counter() - t0) * 1e3
         per_it = trace.misfit_per_iterate()
         print(f"[inversion] Ricker f64 on the {where}: x {res.x.tolist()} after {res.nit} "
               f"iterations, {res.nfev} evaluations ({len(trace.models)} recorded), w2 "
               f"{res.fun!r}, misfit per iterate {float(per_it[0])!r} .. "
               f"{float(per_it[-1])!r}, kernel launches {cuda_distance.LAUNCHES}, "
-              f"{wall_ms:.1f} ms (host clock, one run), "
-              f"scipy: {res.message!r} {card}")
+              f"scipy: {res.message!r}")
         if where == "card":
             launches["ricker_inversion"] = cuda_distance.LAUNCHES
             per_eval["ricker_inversion"] = cuda_distance.LAUNCHES / res.nfev
@@ -3048,23 +2802,23 @@ def main() -> int:
 
     # 9-11. the layered f-k physics, the stage-A kernel alone first
     stage_a_rows = stage_a_phase(dev, card)
-    layered, stage_a_paths, stage_a_per_call = layered_phases(dev, opts, card, per_eval)
+    layered, stage_a_paths, stage_a_per_call = layered_phases(dev, opts, per_eval)
     launches.update(layered)
 
     # 12. the OT and fingerprint toolbox through the compat layer
-    toolbox, toolbox_per_call = toolbox_phase(dev, card)
+    toolbox, toolbox_per_call = toolbox_phase(dev)
     launches.update(toolbox)
 
     # 13. the reference's two inversion drivers through their compat modules
-    drivers, drivers_per_call = drivers_phase(dev, card)
+    drivers, drivers_per_call = drivers_phase(dev)
     launches.update(drivers)
 
     # 14. the native slice: fast marching, the POT bridges, the zoom L-BFGS
-    native, native_per_call = native_phase(dev, card, study_ms_by["multistart"])
+    native, native_per_call = native_phase(dev)
     launches.update(native)
 
     # 15. the parallel layer: meshes, trace-, node-, start-, grid- and dp x sp-sharding
-    parallel, parallel_per_call = parallel_phase(dev, card)
+    parallel, parallel_per_call = parallel_phase(dev)
     launches.update(parallel)
 
     # 16. the port's example scripts, loc1024 among them
@@ -3073,17 +2827,17 @@ def main() -> int:
     rows.extend(examples_rows)
 
     # 17. the system's own entry points: entry() and dryrun_multichip's steps
-    entries, entries_per_call = entry_phase(dev, card)
+    entries, entries_per_call = entry_phase(dev)
     launches.update(entries)
 
     # 18. the port's bench program: bench.py's ten stages and its line
     torch.cuda.empty_cache()
-    benched, bench_per_call = bench_phase(card)
+    benched, bench_per_call = bench_phase()
     launches.update(benched)
 
     # 19. the JAX package's surface as the port binds it: ops.wasser,
     # top_device_ops(trace_dir), save_checkpoint(pytree)
-    surface, surface_per_call = surface_phase(dev, card)
+    surface, surface_per_call = surface_phase(dev)
     launches.update(surface)
 
     head = rows[0]                        # loc64 float32, the headline
@@ -3103,8 +2857,8 @@ def main() -> int:
                               **bench_per_call, **surface_per_call},
         "max_abs_err": max_abs_err,
         "bit_identical": bit_identical, "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "share": head["share"], "library_ms": None, "by_shape": rows,
+        "bound_ms": head["bound_ms"], "share": head["share"], "library_ms": None,
+        "by_shape": rows,
     }, {
         "name": "surface_operator", "route": "cuda",
         "source": "waveform_ot_torch/csrc/surface_operator.cu", "replaces": None,

@@ -57,22 +57,10 @@ from chip_smoke import (
     build_layered_problem, build_loc64_problem, fingerprint_pdfs, migration_waveforms,
     rf_grid6, rf_waveform, scan_axes, scan_nodes, study_starts,
 )
+from otbench.trace import busy_us
 from waveform_ot_torch.utils.profiling import LAUNCH_CALLS, device_trace
 
 WORKLOADS = ("loc64", "scan", "study", "layered", "layered_scan", "layered_ms", "toolbox")
-
-
-def _busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals, microseconds."""
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    return busy
 
 
 def layered_workload(name: str, dev):
@@ -140,13 +128,13 @@ def stage_breakdown(dev, sources, smi: str):
     # a range also appears on the device as one span over its kernels: leave it out
     dev_ev = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in labels]
     ranges = [e for e in events if e.device_type == DeviceType.CPU and e.name in labels]
-    busy = _busy_us((e.time_range.start, e.time_range.end) for e in dev_ev)
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in dev_ev)
     print(f"[stages] {smi}; one evaluation, {x.numel()} sources, synchronised between "
           f"stages: device busy {busy / 1e3:.4f} ms")
     for r in sorted(ranges, key=lambda e: e.time_range.start):
         inside = [e for e in dev_ev if r.time_range.start <= e.time_range.start
                   < r.time_range.end]
-        us = _busy_us((e.time_range.start, e.time_range.end) for e in inside)
+        us = busy_us((e.time_range.start, e.time_range.end) for e in inside)
         kern = sum(e.time_range.elapsed_us() for e in inside if KERNEL_NAME in e.name)
         print(f"[stages] {100 * us / busy:5.1f}%  {us / 1e3:9.4f} ms device busy, "
               f"{r.time_range.elapsed_us() / 1e3:9.4f} ms host clock, {len(inside):6d} device "
@@ -239,7 +227,7 @@ def profile(call, warm: int, calls: int, what: str, smi: str) -> str:
     events = prof.events()
     if not dev_ev:
         raise RuntimeError("the profiler recorded no device time")
-    busy_ms = _busy_us((e.time_range.start, e.time_range.end) for e in dev_ev) / 1e3
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in dev_ev) / 1e3
     busy_ms /= calls
     launches = sum(e.name in LAUNCH_CALLS for e in events) / calls
     by_name = collections.Counter()
